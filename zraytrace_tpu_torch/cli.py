@@ -1,0 +1,71 @@
+"""Command line interface; counterpart of ``zraytrace_tpu/cli.py``.
+
+Positional argument order matches the reference binary (main.zig:16):
+``width height samples depth scene_index filename``. Renders on the CUDA
+device; ``--cpu`` renders with the plain PyTorch wavefront on the host.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="zraytrace-tpu-torch",
+        description="PyTorch / CUDA path tracer "
+        "(usage mirrors the reference: main.zig:16)",
+    )
+    parser.add_argument("width", type=int)
+    parser.add_argument("height", type=int)
+    parser.add_argument("samples", type=int)
+    parser.add_argument("depth", type=int)
+    parser.add_argument("scene_index", type=int)
+    parser.add_argument("filename")
+    parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--ppm", action="store_true",
+                        help="also write a P3 PPM next to the PNG")
+    parser.add_argument("--cpu", action="store_true",
+                        help="render on the host CPU instead of the GPU")
+    args = parser.parse_args(argv)
+
+    from zraytrace_tpu_torch.config import RenderParams
+    from zraytrace_tpu_torch.io.png import write_png
+    from zraytrace_tpu_torch.io.ppm import write_ppm
+    from zraytrace_tpu_torch.profiling import PhaseTimer, print_render_report
+    from zraytrace_tpu_torch.render import render
+    from zraytrace_tpu_torch.scenes import build_scene
+
+    device = "cpu" if args.cpu else "cuda"
+    params = RenderParams(
+        width=args.width,
+        height=args.height,
+        samples_per_pixel=args.samples,
+        max_depth=args.depth,
+        seed=args.seed,
+    )
+    timer = PhaseTimer()
+    with timer.span("scene build"):
+        built = build_scene(args.scene_index)
+    print(f"Rendering scene {built.name} on {device}", file=sys.stderr)
+    print(f" - Surfaces:          {built.scene.n_primitives}", file=sys.stderr)
+    print(f" - Pixels:            {params.width}x{params.height}", file=sys.stderr)
+    print(f" - Samples per pixel: {params.samples_per_pixel}", file=sys.stderr)
+    print(f" - Recursion depth:   {params.max_depth}", file=sys.stderr)
+
+    with timer.span("render"):
+        image, stats = render(built.scene, built.camera, params, device)
+    with timer.span("image write"):
+        write_png(args.filename, image.numpy())
+        if args.ppm:
+            write_ppm(str(args.filename) + ".ppm", image.numpy())
+
+    print_render_report(stats)
+    print("Phase timings:", file=sys.stderr)
+    timer.report()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

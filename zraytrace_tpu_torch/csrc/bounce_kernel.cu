@@ -1,0 +1,347 @@
+// Bounce kernel for sphere-only scenes, written for Hopper (sm_90a).
+//
+// Replaces the TPU bounce megakernel in sphere mode:
+// zraytrace_tpu/ops/bounce_kernel3.py:222 (make_bounce_kernel3, driven by
+// wavefront_trace_pallas3). The contract is that of the plain wavefront
+// (zraytrace_tpu_torch/render.py wavefront_trace, itself the port of
+// zraytrace_tpu/render.py:255): per-pixel slot sums (n_slots, N, 3) f32
+// and the six event counters.
+//
+// Design. One thread per lane: lane i traces pixels base[i] + k*stride,
+// k < n_slots, each pixel's samples one after another, each path to its
+// end. The TPU kernel's deferred texel slots, records, texel cache,
+// per-launch gather, roll-fold, balanced lane map and launch loop existed
+// only because Mosaic can neither gather inside a kernel nor skip a
+// branch; here a textured hit reads its one nearest texel straight from
+// global memory (the 12.6 MB atlas stays in the 50 MB L2), and a thread
+// whose path ended simply starts the next sample.
+//
+// What bounds it: per-ray FP32 and SFU work (7 sphere tests, PCG4D,
+// sqrt/acos/atan2/sin/cos) and warp divergence from unequal path lengths
+// and material branches, not bytes: a ray reads ~1 texel. There is no
+// matrix work, so no wgmma or TMA. The scene tables (spheres (S,5),
+// materials (M,11), camera (12)) sit in shared memory.
+//
+// Numerics follow the plain PyTorch version operation by operation:
+// explicit left-to-right component sums, division where the reference
+// divides (1.0f/sqrtf, no rsqrtf), the IEEE library functions (no fast
+// math), built with -fmad=false so no multiply-add is contracted.
+//
+// Counters: rays, reflections, background hits, recursion-depth hits and
+// samples are summed per thread, reduced per warp and added with one
+// 64-bit atomicAdd per warp. The sixth, wavefront iterations, is the
+// largest number of loop steps one lane took (warp max, then atomicMax):
+// the number of lockstep iterations the plain wavefront needs for the same
+// lanes, so the two engines report the same value.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int MAX_SPHERES = 32;
+constexpr int MAX_MATS = 32;
+constexpr int BLOCK = 256;
+constexpr float BIG = 3.4e38f;
+constexpr float T_MIN = 1e-3f;
+constexpr float PI_F = 3.14159265358979323846f;
+constexpr float TWO_PI_F = 6.28318530717958647692f;
+constexpr uint32_t STREAM_CAMERA = 0x9E3779B9u;
+constexpr uint32_t STREAM_SCATTER = 0x85EBCA6Bu;
+
+constexpr int LAMBERTIAN = 0;
+constexpr int METAL = 1;
+constexpr int TEX_IMAGE = 1;
+
+// material table columns (zraytrace_tpu/ops/common.py prepare_tables)
+enum {
+  M_TYPE, M_IOR, M_TEXTYPE, M_R, M_G, M_B, M_BASE, M_UOFF, M_VOFF, M_TH, M_TW,
+  M_COLS
+};
+// sphere table columns
+enum { S_CX, S_CY, S_CZ, S_R, S_MAT, S_COLS };
+
+enum { C_RAYS, C_REFLECTIONS, C_BACKGROUND, C_RECURSION, C_SAMPLES, C_ITERS };
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ float dot3(V3 a, V3 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z;
+}
+
+// PCG4D (Jarzynski & Olano 2020) over (pixel, sample, bounce, seed^stream),
+// bit-identical to zraytrace_tpu/rng.py pcg4d + _to_unit_float.
+__device__ __forceinline__ float4 uniform4(uint32_t seed_c, uint32_t pixel,
+                                           uint32_t sample, uint32_t bounce) {
+  uint32_t x = pixel * 1664525u + 1013904223u;
+  uint32_t y = sample * 1664525u + 1013904223u;
+  uint32_t z = bounce * 1664525u + 1013904223u;
+  uint32_t w = seed_c * 1664525u + 1013904223u;
+  x += y * w;
+  y += z * x;
+  z += x * y;
+  w += y * z;
+  x ^= x >> 16;
+  y ^= y >> 16;
+  z ^= z >> 16;
+  w ^= w >> 16;
+  x += y * w;
+  y += z * x;
+  z += x * y;
+  w += y * z;
+  const float k = 1.0f / 16777216.0f;
+  return make_float4((float)(x >> 8) * k, (float)(y >> 8) * k,
+                     (float)(z >> 8) * k, (float)(w >> 8) * k);
+}
+
+__device__ __forceinline__ V3 normalize(V3 v) {
+  float len = sqrtf(dot3(v, v));
+  return V3{v.x / len, v.y / len, v.z / len};
+}
+
+__device__ __forceinline__ float wrap01(float x) {
+  x = x > 1.0f ? x - 1.0f : x;
+  return x < 0.0f ? x + 1.0f : x;
+}
+
+__device__ __forceinline__ V3 reflect(V3 v, V3 n) {
+  float k = 2.0f * dot3(v, n);
+  return V3{v.x - k * n.x, v.y - k * n.y, v.z - k * n.z};
+}
+
+__device__ __forceinline__ unsigned long long warp_sum(unsigned long long v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
+  for (int off = 16; off > 0; off >>= 1) {
+    unsigned long long o = __shfl_down_sync(0xffffffffu, v, off);
+    v = o > v ? o : v;
+  }
+  return v;
+}
+
+__global__ void __launch_bounds__(BLOCK)
+bounce_kernel(const float* __restrict__ sph_g, int n_sph,
+              const float* __restrict__ mats_g, int n_mats,
+              const float* __restrict__ cam_g,
+              const float* __restrict__ atlas, int atlas_w,
+              const int* __restrict__ base, int n_lanes, int width, int height,
+              int sample_start, int spp, int max_depth, uint32_t seed,
+              int pixel_stride, int n_pixels, int n_slots,
+              float* __restrict__ slot_sums,
+              unsigned long long* __restrict__ counters) {
+  __shared__ float sph[MAX_SPHERES * S_COLS];
+  __shared__ float mats[MAX_MATS * M_COLS];
+  __shared__ float cam[12];
+  for (int i = threadIdx.x; i < n_sph * S_COLS; i += blockDim.x) sph[i] = sph_g[i];
+  for (int i = threadIdx.x; i < n_mats * M_COLS; i += blockDim.x) mats[i] = mats_g[i];
+  if (threadIdx.x < 12) cam[threadIdx.x] = cam_g[threadIdx.x];
+  __syncthreads();
+
+  const V3 origin{cam[0], cam[1], cam[2]};
+  const V3 lower_left{cam[3], cam[4], cam[5]};
+  const V3 horizontal{cam[6], cam[7], cam[8]};
+  const V3 vertical{cam[9], cam[10], cam[11]};
+  const float fw = (float)width, fh = (float)height;
+  const uint32_t seed_cam = seed ^ STREAM_CAMERA;
+  const uint32_t seed_sc = seed ^ STREAM_SCATTER;
+
+  uint32_t n_rays = 0, n_refl = 0, n_bg = 0, n_rec = 0, n_samp = 0;
+  uint32_t steps = 0;
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+
+  if (lane < n_lanes) {
+    const int b0 = base[lane];
+    for (int k = 0; k < n_slots; ++k) {
+      const int pixel = b0 + k * pixel_stride;
+      if (pixel >= n_pixels) break;  // the wavefront's lane_alive
+      const float px = (float)(pixel % width);
+      const float py = (float)(pixel / width);
+      float ax = 0.0f, ay = 0.0f, az = 0.0f;
+      for (int s = sample_start; s < sample_start + spp; ++s) {
+        // camera ray (camera.pixel_uv + get_rays)
+        const float4 j = uniform4(seed_cam, (uint32_t)pixel, (uint32_t)s, 0u);
+        const float u = (px + j.x - 0.5f) / fw;
+        const float v = (py + j.y - 0.5f) / fh;
+        V3 o = origin;
+        V3 d = normalize(V3{lower_left.x + u * horizontal.x + v * vertical.x - origin.x,
+                            lower_left.y + u * horizontal.y + v * vertical.y - origin.y,
+                            lower_left.z + u * horizontal.z + v * vertical.z - origin.z});
+        float tx = 1.0f, ty = 1.0f, tz = 1.0f;
+        for (int depth = 0;; ++depth) {
+          ++steps;
+          if (depth >= max_depth) {  // checked before tracing
+            ++n_rec;
+            ++n_samp;
+            break;
+          }
+          ++n_rays;
+
+          // fused sphere winner; strict < keeps the first sphere on ties
+          const float o_dot_d = dot3(o, d);
+          const float o_sq = dot3(o, o);
+          float t_best = BIG;
+          int win = -1;
+          for (int si = 0; si < n_sph; ++si) {
+            const V3 c{sph[si * S_COLS + S_CX], sph[si * S_COLS + S_CY],
+                       sph[si * S_COLS + S_CZ]};
+            const float r = sph[si * S_COLS + S_R];
+            const float half_b = o_dot_d - dot3(d, c);
+            const float cc = o_sq - 2.0f * dot3(o, c) + (dot3(c, c) - r * r);
+            const float disc = half_b * half_b - cc;
+            const float root = disc > 0.0f ? sqrtf(disc) : 0.0f;
+            const float t1 = -half_b - root;
+            const float t2 = -half_b + root;
+            const bool ok1 = (t1 > T_MIN) && (t1 < BIG);
+            const bool ok2 = (t2 > T_MIN) && (t2 < BIG);
+            const float t = ok1 ? t1 : t2;
+            if (disc >= 0.0f && (ok1 || ok2) && t < t_best) {
+              t_best = t;
+              win = si;
+            }
+          }
+
+          if (win < 0) {  // escaped: the sky is the only light
+            ++n_bg;
+            ++n_samp;
+            const float t = 0.5f * (d.y + 1.0f);
+            const float w1 = 1.0f - t;
+            ax = ax + tx * (w1 * 1.0f + t * 0.5f);
+            ay = ay + ty * (w1 * 1.0f + t * 0.7f);
+            az = az + tz * (w1 * 1.0f + t * 1.0f);
+            break;
+          }
+
+          // hit attributes (geometry/sphere.py sphere_attributes)
+          const V3 c{sph[win * S_COLS + S_CX], sph[win * S_COLS + S_CY],
+                     sph[win * S_COLS + S_CZ]};
+          float r = sph[win * S_COLS + S_R];
+          const int mid = (int)sph[win * S_COLS + S_MAT];
+          r = fabsf(r) > 1e-8f ? r : (r < 0.0f ? -1e-8f : 1e-8f);
+          const V3 p{o.x + t_best * d.x, o.y + t_best * d.y, o.z + t_best * d.z};
+          const V3 out{(p.x - c.x) / r, (p.y - c.y) / r, (p.z - c.z) / r};
+          const bool front = dot3(d, out) <= 0.0f;
+          const V3 n = front ? out : V3{-out.x, -out.y, -out.z};
+
+          const float* m = &mats[mid * M_COLS];
+          const int mtype = (int)m[M_TYPE];
+          const float4 rnd = uniform4(seed_sc, (uint32_t)pixel, (uint32_t)s, (uint32_t)depth);
+          const V3 met = reflect(d, n);
+          V3 nd;
+          float ar = 1.0f, ag = 1.0f, ab = 1.0f;
+          if (mtype == LAMBERTIAN || mtype == METAL) {
+            if (m[M_TEXTYPE] == (float)TEX_IMAGE) {
+              // spherical uv, then the nearest texel (textures.py)
+              const float ny = fminf(fmaxf(out.y, -1.0f + 1e-7f), 1.0f - 1e-7f);
+              const float theta = acosf(-ny);
+              float nx = out.x;
+              const float nz = out.z;
+              if (fabsf(nx) + fabsf(nz) < 1e-12f) nx = 1e-12f;
+              const float phi = atan2f(-nz, -nx) + PI_F;
+              const float uu = wrap01(1.0f - phi / TWO_PI_F + m[M_UOFF]);
+              const float vv = wrap01(theta / PI_F + m[M_VOFF]);
+              const int tw = (int)m[M_TW], th = (int)m[M_TH];
+              const int ix = min(max((int)(uu * m[M_TW]), 0), tw - 1);
+              const int iy = min(max((int)(vv * m[M_TH]), 0), th - 1);
+              const long long flat = (long long)m[M_BASE] + (long long)iy * atlas_w + ix;
+              ar = __ldg(&atlas[flat * 3 + 0]);
+              ag = __ldg(&atlas[flat * 3 + 1]);
+              ab = __ldg(&atlas[flat * 3 + 2]);
+            } else {
+              ar = m[M_R];
+              ag = m[M_G];
+              ab = m[M_B];
+            }
+          }
+          bool absorbed = false;
+          if (mtype == LAMBERTIAN) {
+            const float z = rnd.x * 2.0f - 1.0f;
+            const float ph = TWO_PI_F * rnd.y;
+            const float rr = sqrtf(fmaxf(0.0f, 1.0f - z * z));
+            nd = V3{n.x + rr * cosf(ph), n.y + rr * sinf(ph), n.z + z};
+            if (dot3(nd, nd) < 1e-12f) nd = n;
+          } else if (mtype == METAL) {
+            nd = met;
+            absorbed = dot3(met, n) <= 0.0f;
+          } else {  // dielectric
+            const float ior = m[M_IOR];
+            const float ratio = front ? 1.0f / ior : ior;
+            const V3 nd_in{-d.x, -d.y, -d.z};
+            const float cos_t = fminf(dot3(nd_in, n), 1.0f);
+            const float sin_t = sqrtf(fmaxf(0.0f, 1.0f - cos_t * cos_t));
+            const bool cannot_refract = ratio * sin_t > 1.0f;
+            const float r0 = (1.0f - ratio) / (1.0f + ratio);
+            const float x = 1.0f - cos_t;
+            const float x2 = x * x;
+            const float refl = r0 + (1.0f - r0) * (x * (x2 * x2));
+            if (cannot_refract || refl > rnd.z) {
+              nd = met;
+            } else {
+              const V3 perp{ratio * (d.x + cos_t * n.x), ratio * (d.y + cos_t * n.y),
+                            ratio * (d.z + cos_t * n.z)};
+              const float kk = fabsf(1.0f - dot3(perp, perp));
+              const float root = kk > 0.0f ? sqrtf(kk) : 0.0f;
+              const float nr = -root;
+              nd = V3{perp.x + nr * n.x, perp.y + nr * n.y, perp.z + nr * n.z};
+            }
+          }
+          if (absorbed) {
+            ++n_samp;
+            break;
+          }
+          // normalize_safe: multiply by 1/sqrt, zero for degenerate input
+          const float n2 = dot3(nd, nd);
+          const float inv = n2 > 1e-20f ? 1.0f / sqrtf(n2) : 0.0f;
+          d = V3{nd.x * inv, nd.y * inv, nd.z * inv};
+          o = p;
+          tx = tx * ar;
+          ty = ty * ag;
+          tz = tz * ab;
+          ++n_refl;
+        }
+      }
+      float* dst = slot_sums + ((size_t)k * n_lanes + lane) * 3;
+      dst[0] = ax;
+      dst[1] = ay;
+      dst[2] = az;
+    }
+  }
+
+  const unsigned long long sums[5] = {n_rays, n_refl, n_bg, n_rec, n_samp};
+  const bool leader = (threadIdx.x & 31) == 0;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const unsigned long long t = warp_sum(sums[i]);
+    if (leader && t) atomicAdd(&counters[i], t);
+  }
+  const unsigned long long most = warp_max(steps);
+  if (leader && most) atomicMax(&counters[C_ITERS], most);
+}
+
+}  // namespace
+
+extern "C" int zr_bounce_launch(const float* sph, int n_sph, const float* mats,
+                                int n_mats, const float* cam, const float* atlas,
+                                int atlas_w, const int* base, int n_lanes, int width,
+                                int height, int sample_start, int spp, int max_depth,
+                                unsigned int seed, int pixel_stride, int n_pixels,
+                                int n_slots, float* slot_sums,
+                                unsigned long long* counters, void* stream) {
+  if (n_sph < 1 || n_sph > MAX_SPHERES || n_mats < 1 || n_mats > MAX_MATS)
+    return (int)cudaErrorInvalidValue;
+  if (n_lanes <= 0) return 0;
+  const int grid = (n_lanes + BLOCK - 1) / BLOCK;
+  bounce_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+      sph, n_sph, mats, n_mats, cam, atlas, atlas_w, base, n_lanes, width, height,
+      sample_start, spp, max_depth, seed, pixel_stride, n_pixels, n_slots, slot_sums,
+      counters);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* zr_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -1,0 +1,260 @@
+"""Wavefront path-tracing engine and the ``render()`` entry point.
+
+Counterpart of ``zraytrace_tpu/render.py`` for sphere-only scenes. The
+plain wavefront here (``wavefront_trace``) defines the event-counter
+semantics, exactly as the JAX engine does: one lane per pixel slot, all
+lanes advanced one bounce per iteration, a lane regenerating its next
+camera sample as soon as a path ends. It is the CPU engine and the
+reference the CUDA bounce kernel (``ops/bounce_kernel.py``) is held to.
+
+Radiance identity (no emitters; the sky gradient is the only light,
+raytrace.zig:53-58): a path contributes ``prod(attenuations) * sky(dir)``
+when it escapes, else black (absorbed, or depth exhausted).
+
+Counters are one int64 tensor of shape ``(6,)`` — rays, reflections,
+background hits, recursion-depth hits, samples, wavefront iterations —
+in place of the JAX package's two-limb uint32 pairs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+
+import torch
+
+from zraytrace_tpu_torch import camera as cam
+from zraytrace_tpu_torch import materials as mat
+from zraytrace_tpu_torch import rng as zrng
+from zraytrace_tpu_torch import vecmath as vm
+from zraytrace_tpu_torch.config import T_MIN, RenderParams
+from zraytrace_tpu_torch.geometry.sphere import (
+    BIG,
+    intersect_spheres_fused,
+    sphere_attributes,
+)
+from zraytrace_tpu_torch.scene import Scene
+
+# Counter slots, mirroring Progress (raytrace.zig:20-34), plus iteration
+# telemetry: the number of lockstep wavefront steps, which equals the
+# largest number of loop steps any one lane took.
+N_COUNTERS = 6
+C_RAYS, C_REFLECTIONS, C_BACKGROUND, C_RECURSION, C_SAMPLES, C_ITERS = range(N_COUNTERS)
+
+# The fused sphere winner is written for the reference's scene sizes.
+MAX_SPHERES = 32
+
+
+@dataclasses.dataclass
+class RenderStats:
+    """Totals as published by the reference (raytrace.zig:188-201).
+
+    ``render_seconds`` ends when the counters reached the host (the device
+    has finished); ``transfer_seconds`` is the image fetch and decode.
+    """
+
+    rays: int = 0
+    reflections: int = 0
+    background_hits: int = 0
+    recursion_depth_hits: int = 0
+    samples: int = 0
+    pixels: int = 0
+    wavefront_iterations: int = 0
+    preprocess_seconds: float = 0.0
+    render_seconds: float = 0.0
+    transfer_seconds: float = 0.0
+
+    @property
+    def rays_per_second(self) -> float:
+        return self.rays / self.render_seconds if self.render_seconds else 0.0
+
+    @property
+    def pixels_per_second(self) -> float:
+        return self.pixels / self.render_seconds if self.render_seconds else 0.0
+
+
+def background_color(d: torch.Tensor) -> torch.Tensor:
+    """Sky gradient for escaping rays (raytrace.zig:53-58). ``d`` unit."""
+    t = 0.5 * (d[..., 1] + 1.0)
+    white = torch.tensor([1.0, 1.0, 1.0], dtype=torch.float32, device=d.device)
+    blue = torch.tensor([0.5, 0.7, 1.0], dtype=torch.float32, device=d.device)
+    return (1.0 - t)[..., None] * white + t[..., None] * blue
+
+
+def check_sphere_scene(scene: Scene) -> None:
+    """The port traces sphere-only scenes with at most ``MAX_SPHERES``
+    spheres; anything else waits for the mesh slice."""
+    if scene.n_triangles > 0:
+        raise NotImplementedError(
+            "scenes with triangles need the mesh slice (ROADMAP.md Queue 1 "
+            "item 8)")
+    if not 0 < scene.n_spheres <= MAX_SPHERES:
+        raise NotImplementedError(
+            f"the sphere path takes 1..{MAX_SPHERES} spheres, got "
+            f"{scene.n_spheres}")
+
+
+def trace_closest(scene: Scene, o, d, t_min=T_MIN, t_max=BIG):
+    """Closest-hit query (the sphere-only branch of the JAX
+    ``trace_closest``). Returns dict with: hit (N,), t, point (N,3),
+    normal (N,3) flipped against the ray, front_face (N,), uv (N,2),
+    mat_id (N,)."""
+    check_sphere_scene(scene)
+    fs = intersect_spheres_fused(o, d, scene.sph_center, scene.sph_radius,
+                                 scene.sph_mat, t_min, t_max)
+    hit = fs["hit"]
+    # attributes at a safe t on miss lanes (their values are discarded)
+    t_attr = torch.where(hit, fs["t"], 1.0)
+    point, outward, uv = sphere_attributes(o, d, t_attr, fs["center"], fs["radius"])
+    front_face = vm.dot(d, outward) <= 0.0  # hit_record.zig:28-41
+    normal = torch.where(front_face[:, None], outward, -outward)
+    return dict(hit=hit, t=fs["t"], point=point, normal=normal,
+                front_face=front_face, uv=uv, mat_id=fs["mat_id"])
+
+
+def camera_rays(camera: cam.Camera, seed, pixel_ids, sample_idx, width, height):
+    """Jittered primary rays for ``(pixel, sample)`` pairs
+    (raytrace.zig:174-175), keyed on the camera stream."""
+    j = zrng.uniform4(seed, pixel_ids, sample_idx, 0, zrng.STREAM_CAMERA)
+    px = (pixel_ids % width).to(torch.float32)
+    py = (pixel_ids // width).to(torch.float32)
+    u, v = cam.pixel_uv(px, py, j[:, 0], j[:, 1], float(width), float(height))
+    return cam.get_rays(camera, u, v)
+
+
+def wavefront_trace(scene: Scene, camera: cam.Camera, pixel_base: torch.Tensor,
+                    seed, width, height, spp, max_depth, sample_start=0,
+                    pixel_stride=None, n_pixels=None, n_slots: int = 1):
+    """Trace samples ``[sample_start, sample_start + spp)`` of the pixels
+    of each lane, the plain PyTorch way.
+
+    Lane ``i`` processes pixels ``pixel_base[i] + k * pixel_stride`` for
+    ``k in [0, n_slots)`` (stopping at the first id >= ``n_pixels``), one
+    sample after another. Runs on the device of ``pixel_base``.
+
+    Returns ``(slot_sums (n_slots, N, 3) f32, counters (6,) int64)``.
+    """
+    check_sphere_scene(scene)
+    dev = pixel_base.device
+    n = pixel_base.shape[0]
+    base = pixel_base.to(torch.int32)
+    stride = n if pixel_stride is None else int(pixel_stride)
+    n_pix = width * height if n_pixels is None else int(n_pixels)
+    sample_end = sample_start + spp
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def lane_pixel(slot):
+        return base + slot * stride
+
+    def rays_for(slot, sample_idx):
+        return camera_rays(camera, seed, lane_pixel(slot), sample_idx, width, height)
+
+    slot = torch.zeros((n,), **i32)
+    sample_idx = torch.full((n,), sample_start, **i32)
+    o, d = rays_for(slot, sample_idx)
+    throughput = torch.ones((n, 3), **f32)
+    acc = torch.zeros((n, 3), **f32)  # current pixel's sample sum
+    path_depth = torch.zeros((n,), **i32)
+    slot_sums = torch.zeros((n_slots, n, 3), **f32)
+    counters = torch.zeros((N_COUNTERS,), dtype=torch.int64, device=dev)
+    lanes = torch.arange(n, device=dev)
+
+    def lane_alive(slot):
+        return (slot < n_slots) & (lane_pixel(slot) < n_pix)
+
+    while bool(lane_alive(slot).any()):
+        pixel_ids = lane_pixel(slot)
+        active = lane_alive(slot) & (sample_idx < sample_end)
+        # depth check before tracing, like raytrace.zig:64-67
+        exhausted = active & (path_depth >= max_depth)
+        processing = active & ~exhausted
+
+        h = trace_closest(scene, o, d)
+        rnd = zrng.uniform4(seed, pixel_ids, sample_idx, path_depth, zrng.STREAM_SCATTER)
+        new_dir, atten, absorbed = mat.scatter(
+            scene, d, h["normal"], h["front_face"], h["uv"], h["mat_id"], rnd)
+
+        miss = processing & ~h["hit"]
+        absorb_end = processing & h["hit"] & absorbed
+        scattered = processing & h["hit"] & ~absorbed
+        path_done = miss | absorb_end | exhausted
+
+        # only escaping paths carry radiance: the sky is the only light
+        radiance = torch.where(miss[:, None], throughput * background_color(d), 0.0)
+        acc = acc + radiance
+
+        counters += torch.stack([
+            processing.sum(), scattered.sum(), miss.sum(), exhausted.sum(),
+            path_done.sum(), torch.ones((), dtype=torch.int64, device=dev)])
+
+        sc3 = scattered[:, None]
+        throughput = torch.where(sc3, throughput * atten, throughput)
+        o = torch.where(sc3, h["point"], o)
+        d = torch.where(sc3, new_dir, d)
+        path_depth = path_depth + scattered.to(torch.int32)
+
+        # a finished pixel commits its sum to its slot; the lane moves on
+        sample_idx = sample_idx + path_done.to(torch.int32)
+        finished = path_done & (sample_idx >= sample_end)
+        slot_sums.index_put_((slot[finished].long(), lanes[finished]),
+                             acc[finished], accumulate=True)
+        acc = torch.where(finished[:, None], 0.0, acc)
+        slot = slot + finished.to(torch.int32)
+        sample_idx = torch.where(finished, sample_start, sample_idx)
+
+        # regenerate the next camera sample where a path just ended
+        o_new, d_new = rays_for(slot, sample_idx)
+        pd3 = path_done[:, None]
+        o = torch.where(pd3, o_new, o)
+        d = torch.where(pd3, d_new, d)
+        throughput = torch.where(pd3, 1.0, throughput)
+        path_depth = torch.where(path_done, 0, path_depth)
+
+    return slot_sums, counters
+
+
+def render(scene: Scene, camera: cam.Camera, params: RenderParams, device="cpu"):
+    """Render a full image on ``device``. Returns ``(image (H, W, 3) f32
+    CPU tensor, RenderStats)``.
+
+    Row 0 of the image is the *bottom* (the PNG writer flips). On a CUDA
+    device the bounce loop runs in the CUDA kernel; on the CPU in the
+    plain wavefront. The device is the caller's choice: asking for CUDA
+    without a card raises.
+    """
+    from zraytrace_tpu_torch.ops.bounce_kernel import bounce_trace, library
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("render(device='cuda') but no CUDA device is available")
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        library()  # the first use builds the kernel: set-up, not render time
+    w, h, spp = params.width, params.height, params.samples_per_pixel
+    n_pixels = w * h
+    n_lanes = min(n_pixels, params.max_wavefront)
+    n_slots = math.ceil(n_pixels / n_lanes)
+    scene = scene.to(device)
+    camera = camera.to(device)
+    base = torch.arange(n_lanes, dtype=torch.int32, device=device)
+
+    t1 = time.perf_counter()
+    sums, counters = bounce_trace(
+        scene, camera, base, params.seed, w, h, spp, params.max_depth,
+        0, n_lanes, n_pixels, n_slots)
+    totals = counters.cpu().tolist()  # waits for the device
+    t_dev = time.perf_counter()
+    # pixel p lives at (slot p // n_lanes, lane p % n_lanes)
+    flat = sums.reshape(n_slots * n_lanes, 3)[:n_pixels].cpu()
+    image = (flat / spp).reshape(h, w, 3)
+    t2 = time.perf_counter()
+
+    rays, refl, bg, rec, samples, iters = totals
+    stats = RenderStats(
+        rays=rays, reflections=refl, background_hits=bg,
+        recursion_depth_hits=rec, samples=samples, pixels=n_pixels,
+        wavefront_iterations=iters, preprocess_seconds=t1 - t0,
+        render_seconds=t_dev - t1, transfer_seconds=t2 - t_dev)
+    return image, stats
