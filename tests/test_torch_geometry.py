@@ -26,7 +26,8 @@ T_MIN = 1e-3
 @pytest.fixture(scope="module")
 def scenes():
     jb = jax_three_balls()
-    return jb.scene, scene_from_numpy({k: np.asarray(v) for k, v in jb.scene._asdict().items()})
+    return jb.scene, scene_from_numpy({k: np.asarray(v) for k, v in jb.scene._asdict().items()},
+                                       "cpu")
 
 
 @pytest.fixture(scope="module")

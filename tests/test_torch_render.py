@@ -40,8 +40,8 @@ def _jax_counters(c) -> list:
 def built():
     """The same scene in both packages, crossed over through numpy."""
     jb = jax_three_balls()
-    scene = scene_from_numpy({k: np.asarray(v) for k, v in jb.scene._asdict().items()})
-    camera = camera_from_numpy(*map(np.asarray, jb.camera))
+    scene = scene_from_numpy({k: np.asarray(v) for k, v in jb.scene._asdict().items()}, "cpu")
+    camera = camera_from_numpy(*map(np.asarray, jb.camera), device="cpu")
     return jb, scene, camera
 
 
@@ -105,7 +105,7 @@ def test_render_matches_jax_render(built):
                            JaxParams(width=32, height=24, samples_per_pixel=2,
                                      max_depth=4, use_pallas=False))
     img, st = render(scene, camera, RenderParams(width=32, height=24,
-                                                 samples_per_pixel=2, max_depth=4))
+                                                 samples_per_pixel=2, max_depth=4), "cpu")
     assert img.shape == (24, 32, 3) and img.dtype == torch.float32
     for k in ("rays", "reflections", "background_hits", "recursion_depth_hits",
               "samples", "pixels", "wavefront_iterations"):
@@ -119,8 +119,8 @@ def test_render_slot_layout_invariant(built):
     """A narrow wavefront (several pixels per lane) traces the same
     streams: identical counters and images to the one-slot layout."""
     _, scene, camera = built
-    wide = render(scene, camera, RenderParams(20, 12, 2, 4))
-    narrow = render(scene, camera, RenderParams(20, 12, 2, 4, max_wavefront=64))
+    wide = render(scene, camera, RenderParams(20, 12, 2, 4), "cpu")
+    narrow = render(scene, camera, RenderParams(20, 12, 2, 4, max_wavefront=64), "cpu")
     for k in ("rays", "reflections", "background_hits", "recursion_depth_hits", "samples"):
         assert getattr(wide[1], k) == getattr(narrow[1], k), k
     assert torch.equal(wide[0], narrow[0])
@@ -160,6 +160,28 @@ def test_cuda_device_without_a_card_raises(built):
         render(scene, camera, RenderParams(8, 8, 1, 2), device="cuda")
 
 
+def test_default_device_is_the_card(built):
+    """Entry points run on the card unless the caller asks for the CPU:
+    without one, calling them with no device raises instead of rendering
+    on the host."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; tests/test_torch_gpu.py covers it")
+    from zraytrace_tpu_torch.camera import make_camera
+    from zraytrace_tpu_torch.scene import SceneBuilder
+    from zraytrace_tpu_torch.scenes import build_scene
+
+    _, scene, camera = built
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render(scene, camera, RenderParams(8, 8, 1, 2))
+    b = SceneBuilder()
+    b.add_sphere((0, 0, 0), 1.0, b.add_lambertian_color((0.5, 0.5, 0.5)))
+    for call in (lambda: build_scene(1), b.build,
+                 lambda: make_camera((0, 0, -1), (0, 0, 0), (0, 1, 0), 45.0, 1.0),
+                 lambda: camera_from_numpy(*map(np.asarray, camera))):
+        with pytest.raises((RuntimeError, AssertionError)):
+            call()
+
+
 def test_cli_cpu_writes_png(tmp_path):
     from PIL import Image
 
@@ -170,5 +192,9 @@ def test_cli_cpu_writes_png(tmp_path):
     with Image.open(out) as im:
         assert im.size == (12, 8) and im.mode == "RGB"
     assert (tmp_path / "out.png.ppm").exists()
-    with pytest.raises(NotImplementedError):
-        main(["8", "8", "1", "2", "3", str(tmp_path / "mesh.png"), "--cpu"])
+    mesh = tmp_path / "mesh.png"
+    assert main(["8", "6", "1", "2", "3", str(mesh), "--cpu"]) == 0
+    with Image.open(mesh) as im:
+        assert im.size == (8, 6)
+    with pytest.raises(FileNotFoundError):  # scene 5's asset is absent upstream
+        main(["8", "8", "1", "2", "5", str(tmp_path / "goat.png"), "--cpu"])

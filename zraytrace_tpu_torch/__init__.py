@@ -2,14 +2,17 @@
 
 The JAX package ``zraytrace_tpu`` stays the reference; this package renders
 the same scenes with the same stateless PCG4D streams and event counters.
-Plain functions on tensors, an explicit ``device`` argument everywhere, and
-no global RNG state. On a CUDA device the bounce loop runs in a hand-written
-Hopper kernel (``csrc/bounce_kernel.cu``); on the CPU it runs the plain
-PyTorch wavefront that the kernel is tested against.
+Plain functions on tensors, an explicit ``device`` argument everywhere
+(the card by default), and no global RNG state. On a CUDA device the
+bounce loop runs in a hand-written Hopper kernel (``csrc/bounce_kernel.cu``,
+whose mesh mode runs the flash triangle winner of
+``csrc/flash_intersect.cu`` in place); on the CPU it runs the plain
+PyTorch wavefront that the kernel is tested against, only when the caller
+asks for the CPU.
 
-Currently ported: the sphere-scene forward render path (scene 1,
-threeBalls / 7-spheres). Meshes, the differentiable path and the sharded
-paths are listed in ROADMAP.md.
+Currently ported: the forward render path of sphere scenes (scene 1) and
+mesh scenes (0, 2, 3, 4). The differentiable path and the sharded paths
+are listed in ROADMAP.md.
 """
 
 import torch

@@ -29,7 +29,7 @@ class Camera(NamedTuple):
 
 
 def make_camera(look_from, look_at, vup, vfov_degrees, aspect_ratio,
-                device="cpu") -> Camera:
+                device="cuda") -> Camera:
     """Build the camera frame (camera.zig:17-45), in f32 like the JAX
     reference (``h`` is ``tan`` of an f32 angle). Computed on the host,
     so every device gets the same frame, then moved to ``device``."""

@@ -1,7 +1,8 @@
 """Command line interface; counterpart of ``zraytrace_tpu/cli.py``.
 
 Positional argument order matches the reference binary (main.zig:16):
-``width height samples depth scene_index filename``. Renders on the CUDA
+``width height samples depth scene_index filename``; scenes 0-4 render
+(5, goat, needs an asset that is absent upstream). Renders on the CUDA
 device; ``--cpu`` renders with the plain PyTorch wavefront on the host.
 """
 
@@ -47,7 +48,7 @@ def main(argv=None) -> int:
     )
     timer = PhaseTimer()
     with timer.span("scene build"):
-        built = build_scene(args.scene_index)
+        built = build_scene(args.scene_index, device)
     print(f"Rendering scene {built.name} on {device}", file=sys.stderr)
     print(f" - Surfaces:          {built.scene.n_primitives}", file=sys.stderr)
     print(f" - Pixels:            {params.width}x{params.height}", file=sys.stderr)

@@ -1,11 +1,12 @@
-// Bounce kernel for sphere-only scenes, written for Hopper (sm_90a).
+// Bounce kernel for sphere and mesh scenes, written for Hopper (sm_90a).
 //
-// Replaces the TPU bounce megakernel in sphere mode:
-// zraytrace_tpu/ops/bounce_kernel3.py:222 (make_bounce_kernel3, driven by
-// wavefront_trace_pallas3). The contract is that of the plain wavefront
-// (zraytrace_tpu_torch/render.py wavefront_trace, itself the port of
-// zraytrace_tpu/render.py:255): per-pixel slot sums (n_slots, N, 3) f32
-// and the six event counters.
+// Replaces the TPU bounce megakernel zraytrace_tpu/ops/bounce_kernel3.py:222
+// (make_bounce_kernel3, driven by wavefront_trace_pallas3) in sphere mode
+// and in mesh mode (has_mesh, :231-248, with the flash glue :1338-1370),
+// and so also the round-2 zraytrace_tpu/legacy/bounce_kernel2.py:71. The
+// contract is that of the plain wavefront (zraytrace_tpu_torch/render.py
+// wavefront_trace, itself the port of zraytrace_tpu/render.py:255):
+// per-pixel slot sums (n_slots, N, 3) f32 and the six event counters.
 //
 // Design. One thread per lane: lane i traces pixels base[i] + k*stride,
 // k < n_slots, each pixel's samples one after another, each path to its
@@ -22,10 +23,30 @@
 // matrix work, so no wgmma or TMA. The scene tables (spheres (S,5),
 // materials (M,11), camera (12)) sit in shared memory.
 //
+// Mesh mode (the template parameter MESH, so the sphere-only kernel is
+// compiled as before). The TPU kernel blocks a segment that can reach the
+// mesh, resolves all blocked lanes with one flash call per launch and
+// replays them, because Mosaic cannot intersect triangles usefully inside
+// the megakernel. Here each segment runs the sphere winner; if the ray
+// reaches the mesh root box within (t_min, t_sphere], the flash winner's
+// device function (tri_winner.cuh) runs in place, seeded with t_sphere;
+// the merge is a strict <, so spheres keep exact ties, and a triangle hit
+// is shaded with its attrs row (unit face normal, material id). The
+// triangle tests are per-ray FP32 work over the chunks the ray reaches,
+// and rays that reach the mesh diverge from rays that do not: both bound
+// mesh scenes. The planes stay in global memory (the teapot's 455 KB sit in
+// L2). The root-box test uses the chunk slab formula on a box containing
+// every chunk box, so it never skips a chunk the ray would reach.
+//
 // Numerics follow the plain PyTorch version operation by operation:
 // explicit left-to-right component sums, division where the reference
 // divides (1.0f/sqrtf, no rsqrtf), the IEEE library functions (no fast
 // math), built with -fmad=false so no multiply-add is contracted.
+//
+// Work counters (the template parameter COUNT, for a bound on the kernel's
+// time; the instantiations without it are the ones render() runs): the
+// sphere tests whose discriminant is positive, the segments that reach the
+// mesh root box, the triangle hits shaded, and tri_winner's own counts.
 //
 // Counters: rays, reflections, background hits, recursion-depth hits and
 // samples are summed per thread, reduced per warp and added with one
@@ -36,6 +57,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tri_winner.cuh"
 
 namespace {
 
@@ -124,22 +147,39 @@ __device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
   return v;
 }
 
+// work array columns after tri_winner's (ops/bounce_kernel.py WORK_FIELDS)
+enum { W_DISC = zr::W_TRI_N, W_ROOT, W_TRI_HITS, W_N };
+
+// The mesh: flash planes (18, C, 128), chunk boxes (C, 8), attrs
+// (C*128, 4) and the root box [lo3, hi3] (mesh mode only).
+struct Mesh {
+  const float* planes;
+  const float* bounds;
+  const float* attrs;
+  const float* box;
+  int n_chunks;
+};
+
+template <bool MESH, bool COUNT>
 __global__ void __launch_bounds__(BLOCK)
 bounce_kernel(const float* __restrict__ sph_g, int n_sph,
               const float* __restrict__ mats_g, int n_mats,
               const float* __restrict__ cam_g,
-              const float* __restrict__ atlas, int atlas_w,
+              const float* __restrict__ atlas, int atlas_w, Mesh mesh,
               const int* __restrict__ base, int n_lanes, int width, int height,
               int sample_start, int spp, int max_depth, uint32_t seed,
               int pixel_stride, int n_pixels, int n_slots,
               float* __restrict__ slot_sums,
-              unsigned long long* __restrict__ counters) {
+              unsigned long long* __restrict__ counters,
+              unsigned long long* __restrict__ work) {
   __shared__ float sph[MAX_SPHERES * S_COLS];
   __shared__ float mats[MAX_MATS * M_COLS];
   __shared__ float cam[12];
+  __shared__ float box[6];
   for (int i = threadIdx.x; i < n_sph * S_COLS; i += blockDim.x) sph[i] = sph_g[i];
   for (int i = threadIdx.x; i < n_mats * M_COLS; i += blockDim.x) mats[i] = mats_g[i];
   if (threadIdx.x < 12) cam[threadIdx.x] = cam_g[threadIdx.x];
+  if (MESH && threadIdx.x < 6) box[threadIdx.x] = mesh.box[threadIdx.x];
   __syncthreads();
 
   const V3 origin{cam[0], cam[1], cam[2]};
@@ -152,6 +192,8 @@ bounce_kernel(const float* __restrict__ sph_g, int n_sph,
 
   uint32_t n_rays = 0, n_refl = 0, n_bg = 0, n_rec = 0, n_samp = 0;
   uint32_t steps = 0;
+  zr::TwCount cnt{};
+  unsigned long long n_disc = 0, n_root = 0, n_tri_hits = 0;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
 
   if (lane < n_lanes) {
@@ -193,6 +235,7 @@ bounce_kernel(const float* __restrict__ sph_g, int n_sph,
             const float half_b = o_dot_d - dot3(d, c);
             const float cc = o_sq - 2.0f * dot3(o, c) + (dot3(c, c) - r * r);
             const float disc = half_b * half_b - cc;
+            if (COUNT && disc > 0.0f) ++n_disc;
             const float root = disc > 0.0f ? sqrtf(disc) : 0.0f;
             const float t1 = -half_b - root;
             const float t2 = -half_b + root;
@@ -205,7 +248,29 @@ bounce_kernel(const float* __restrict__ sph_g, int n_sph,
             }
           }
 
-          if (win < 0) {  // escaped: the sky is the only light
+          // mesh mode: the flash winner below the sphere winner's t
+          bool tri = false;
+          V3 tri_n{0.0f, 0.0f, 0.0f};
+          int tri_mid = 0;
+          if (MESH) {
+            const zr::TwRay ray = zr::tw_ray(o.x, o.y, o.z, d.x, d.y, d.z);
+            if (zr::tw_reach(box, box + 3, ray, T_MIN, t_best)) {
+              if (COUNT) ++n_root;
+              const zr::TwHit th = zr::tri_winner<COUNT>(mesh.planes, mesh.bounds,
+                                                         mesh.n_chunks, ray, T_MIN, t_best,
+                                                         true, cnt);
+              if (th.t < t_best) {
+                if (COUNT) ++n_tri_hits;
+                t_best = th.t;
+                tri = true;
+                const float* at = mesh.attrs + 4 * (size_t)th.id;
+                tri_n = V3{__ldg(at), __ldg(at + 1), __ldg(at + 2)};
+                tri_mid = (int)__ldg(at + 3);
+              }
+            }
+          }
+
+          if (win < 0 && !tri) {  // escaped: the sky is the only light
             ++n_bg;
             ++n_samp;
             const float t = 0.5f * (d.y + 1.0f);
@@ -216,14 +281,19 @@ bounce_kernel(const float* __restrict__ sph_g, int n_sph,
             break;
           }
 
-          // hit attributes (geometry/sphere.py sphere_attributes)
-          const V3 c{sph[win * S_COLS + S_CX], sph[win * S_COLS + S_CY],
-                     sph[win * S_COLS + S_CZ]};
-          float r = sph[win * S_COLS + S_R];
-          const int mid = (int)sph[win * S_COLS + S_MAT];
-          r = fabsf(r) > 1e-8f ? r : (r < 0.0f ? -1e-8f : 1e-8f);
+          // hit attributes: the attrs row of a triangle, else
+          // geometry/sphere.py sphere_attributes
           const V3 p{o.x + t_best * d.x, o.y + t_best * d.y, o.z + t_best * d.z};
-          const V3 out{(p.x - c.x) / r, (p.y - c.y) / r, (p.z - c.z) / r};
+          V3 out = tri_n;
+          int mid = tri_mid;
+          if (!tri) {
+            const V3 c{sph[win * S_COLS + S_CX], sph[win * S_COLS + S_CY],
+                       sph[win * S_COLS + S_CZ]};
+            float r = sph[win * S_COLS + S_R];
+            mid = (int)sph[win * S_COLS + S_MAT];
+            r = fabsf(r) > 1e-8f ? r : (r < 0.0f ? -1e-8f : 1e-8f);
+            out = V3{(p.x - c.x) / r, (p.y - c.y) / r, (p.z - c.z) / r};
+          }
           const bool front = dot3(d, out) <= 0.0f;
           const V3 n = front ? out : V3{-out.x, -out.y, -out.z};
 
@@ -320,25 +390,59 @@ bounce_kernel(const float* __restrict__ sph_g, int n_sph,
   }
   const unsigned long long most = warp_max(steps);
   if (leader && most) atomicMax(&counters[C_ITERS], most);
+  if (COUNT) {
+#pragma unroll
+    for (int i = 0; i < zr::W_TRI_N; ++i) zr::tw_add(&work[i], cnt.n[i]);
+    zr::tw_add(&work[W_DISC], n_disc);
+    zr::tw_add(&work[W_ROOT], n_root);
+    zr::tw_add(&work[W_TRI_HITS], n_tri_hits);
+  }
+}
+
+template <bool MESH>
+void launch(int grid, cudaStream_t stream, const float* sph, int n_sph, const float* mats,
+            int n_mats, const float* cam, const float* atlas, int atlas_w, const Mesh& mesh,
+            const int* base, int n_lanes, int width, int height, int sample_start, int spp,
+            int max_depth, unsigned int seed, int pixel_stride, int n_pixels, int n_slots,
+            float* slot_sums, unsigned long long* counters, unsigned long long* work) {
+  if (work) {
+    bounce_kernel<MESH, true><<<grid, BLOCK, 0, stream>>>(
+        sph, n_sph, mats, n_mats, cam, atlas, atlas_w, mesh, base, n_lanes, width, height,
+        sample_start, spp, max_depth, seed, pixel_stride, n_pixels, n_slots, slot_sums,
+        counters, work);
+  } else {
+    bounce_kernel<MESH, false><<<grid, BLOCK, 0, stream>>>(
+        sph, n_sph, mats, n_mats, cam, atlas, atlas_w, mesh, base, n_lanes, width, height,
+        sample_start, spp, max_depth, seed, pixel_stride, n_pixels, n_slots, slot_sums,
+        counters, work);
+  }
 }
 
 }  // namespace
 
+// n_chunks == 0: sphere mode (planes, bounds, attrs and box unused);
+// n_chunks > 0: mesh mode, where n_sph may be 0. work: null, or int64
+// [W_N] that receives the work done (the slower counting kernel).
 extern "C" int zr_bounce_launch(const float* sph, int n_sph, const float* mats,
                                 int n_mats, const float* cam, const float* atlas,
-                                int atlas_w, const int* base, int n_lanes, int width,
+                                int atlas_w, const float* planes, const float* bounds,
+                                const float* attrs, const float* box, int n_chunks,
+                                unsigned long long* work, const int* base, int n_lanes, int width,
                                 int height, int sample_start, int spp, int max_depth,
                                 unsigned int seed, int pixel_stride, int n_pixels,
                                 int n_slots, float* slot_sums,
                                 unsigned long long* counters, void* stream) {
-  if (n_sph < 1 || n_sph > MAX_SPHERES || n_mats < 1 || n_mats > MAX_MATS)
+  const bool mesh_mode = n_chunks > 0;
+  if (n_sph < (mesh_mode ? 0 : 1) || n_sph > MAX_SPHERES || n_mats < 1 ||
+      n_mats > MAX_MATS || n_chunks < 0)
     return (int)cudaErrorInvalidValue;
   if (n_lanes <= 0) return 0;
   const int grid = (n_lanes + BLOCK - 1) / BLOCK;
-  bounce_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      sph, n_sph, mats, n_mats, cam, atlas, atlas_w, base, n_lanes, width, height,
-      sample_start, spp, max_depth, seed, pixel_stride, n_pixels, n_slots, slot_sums,
-      counters);
+  const Mesh mesh{planes, bounds, attrs, box, n_chunks};
+  (mesh_mode ? launch<true> : launch<false>)(
+      grid, (cudaStream_t)stream, sph, n_sph, mats, n_mats, cam, atlas, atlas_w, mesh, base,
+      n_lanes, width, height, sample_start, spp, max_depth, seed, pixel_stride, n_pixels,
+      n_slots, slot_sums, counters, work);
   return (int)cudaGetLastError();
 }
 

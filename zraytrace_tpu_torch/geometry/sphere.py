@@ -1,7 +1,8 @@
-"""Batched ray-sphere intersection for sphere-only scenes.
+"""Batched ray-sphere intersection.
 
-Counterpart of ``zraytrace_tpu/geometry/sphere.py`` (the fused winner and
-``sphere_attributes``). Reference semantics: sphere.zig:31-69 — half-b
+Counterpart of ``zraytrace_tpu/geometry/sphere.py``: the fused winner of
+sphere-only scenes, the general ``intersect_spheres`` of mixed scenes, and
+the hit attributes. Reference semantics: sphere.zig:31-69 — half-b
 quadratic, near root preferred, far root only when the near one is out of
 range (origin inside), spherical uv from acos/atan2, and a signed radius
 giving inward normals for the hollow-glass bubble.
@@ -66,6 +67,38 @@ def intersect_spheres_fused(o, d, centers, radii, mat_ids, t_min, t_max):
     return dict(t=t_best, hit=t_best < BIG, center=c_sel, radius=r_sel, mat_id=m_sel)
 
 
+def intersect_spheres(o, d, centers, radii, t_min, t_max):
+    """Closest valid sphere hit per ray over all ``S`` spheres at once,
+    the general form the mixed-scene query uses (the JAX function builds
+    the ``(N, S)`` terms with matmuls; here they are component sums).
+    The values are those of ``intersect_spheres_fused``.
+
+    Returns ``t (N,)`` (``BIG`` where none), ``idx (N,)`` int32 (0 where
+    none, the first sphere winning exact ties) and ``hit (N,)``.
+    """
+    o_dot_d = vm.dot(o, d)[:, None]
+    o_sq = vm.length_squared(o)[:, None]
+    ct = centers.T  # (3, S)
+    d_dot_c = d[:, 0:1] * ct[0] + d[:, 1:2] * ct[1] + d[:, 2:3] * ct[2]
+    o_dot_c = o[:, 0:1] * ct[0] + o[:, 1:2] * ct[1] + o[:, 2:3] * ct[2]
+    c_sq = vm.length_squared(centers) - radii * radii
+    half_b = o_dot_d - d_dot_c
+    cc = o_sq - 2.0 * o_dot_c + c_sq[None, :]
+    disc = half_b * half_b - cc
+    pos = disc > 0.0
+    one = torch.ones((), dtype=torch.float32, device=o.device)
+    root = torch.where(pos, vm.sqrt(torch.where(pos, disc, one)), 0.0)
+    t1 = -half_b - root
+    t2 = -half_b + root
+    ok1 = (t1 > t_min) & (t1 < t_max)
+    ok2 = (t2 > t_min) & (t2 < t_max)
+    t = torch.where(ok1, t1, t2)
+    valid = (disc >= 0.0) & (ok1 | ok2)
+    t = torch.where(valid, t, BIG)
+    t_best, idx = torch.min(t, dim=-1)  # first minimal index
+    return t_best, idx.to(torch.int32), t_best < BIG
+
+
 def _safe_radius(radius: torch.Tensor) -> torch.Tensor:
     """Keep 1/radius finite for a radius at zero (sign preserved)."""
     tiny = torch.where(radius < 0, -1e-8, 1e-8).to(radius.dtype)
@@ -87,3 +120,12 @@ def sphere_attributes(o, d, t, center, radius):
     phi = torch.atan2(-nz, -nx) + math.pi
     uv = torch.stack([vm.div(phi, 2.0 * math.pi), vm.div(theta, math.pi)], dim=-1)
     return point, normal, uv
+
+
+def sphere_surface(o, d, t, idx, centers, radii):
+    """Point, outward normal and uv of sphere ``idx`` per ray
+    (sphere.zig:43-52). The JAX function selects the rows with a
+    gather-free where-chain (``onehot_rows``); a gather gives the same
+    values."""
+    i = idx.long()
+    return sphere_attributes(o, d, t, centers[i], radii[i])

@@ -1,11 +1,13 @@
-"""The bounce kernel: the whole sphere-scene path loop in one CUDA launch.
+"""The bounce kernel: the whole path loop in one CUDA launch.
 
-Replaces the TPU bounce megakernel in sphere mode
-(``zraytrace_tpu/ops/bounce_kernel3.py:222``, ``make_bounce_kernel3``,
-driven by ``wavefront_trace_pallas3``). The source, with the design note
-(one thread per lane, texels read directly from global memory, bounded
-by per-ray FP32/SFU work and divergence rather than bytes, no wgmma or
-TMA since there is no matrix work), is ``csrc/bounce_kernel.cu``.
+Replaces the TPU bounce megakernel (``zraytrace_tpu/ops/
+bounce_kernel3.py:222``, ``make_bounce_kernel3``, driven by
+``wavefront_trace_pallas3``) in sphere mode and in mesh mode. The source,
+with the design note (one thread per lane, texels read directly from
+global memory, in mesh mode the flash winner run in place for segments
+that reach the mesh, bounded by per-ray FP32/SFU work and divergence
+rather than bytes, no wgmma or TMA since there is no matrix work), is
+``csrc/bounce_kernel.cu``.
 
 ``bounce_trace`` has the contract of the plain wavefront
 ``render.wavefront_trace``, which this module re-exports as
@@ -20,19 +22,29 @@ import ctypes
 import torch
 
 from zraytrace_tpu_torch.camera import Camera
-from zraytrace_tpu_torch.render import N_COUNTERS, check_sphere_scene
+from zraytrace_tpu_torch.ops.flash_intersect import WORK_FIELDS as TRI_WORK_FIELDS
+from zraytrace_tpu_torch.ops.flash_intersect import TriPlanes, check_planes
+from zraytrace_tpu_torch.render import MAX_SPHERES, N_COUNTERS
 from zraytrace_tpu_torch.render import wavefront_trace as wavefront_trace_reference
 from zraytrace_tpu_torch.scene import Scene
 
-__all__ = ["bounce_trace", "wavefront_trace_reference", "LAUNCHES", "library",
-           "scene_tables"]
+__all__ = ["bounce_trace", "wavefront_trace_reference", "LAUNCHES", "MESH_LAUNCHES",
+           "WORK_FIELDS", "check_mesh", "library", "scene_tables"]
 
-# Kernel launches made by ``bounce_trace`` in this process.
+# Kernel launches made by ``bounce_trace`` in this process, and those of
+# them in mesh mode.
 LAUNCHES = 0
+MESH_LAUNCHES = 0
 
 # The kernel's shared-memory material table holds at most this many rows
 # (csrc/bounce_kernel.cu MAX_MATS; render.MAX_SPHERES likewise).
 MAX_MATS = 32
+
+# The work counts ``bounce_trace(..., work=)`` receives, in order: the
+# flash winner's (chunk slab tests, chunk visits, triangle tests passing
+# det, t and u), then sphere tests with a positive discriminant, segments
+# reaching the mesh root box and triangle hits.
+WORK_FIELDS = TRI_WORK_FIELDS + ("disc", "root", "tri_hits")
 
 _I, _U, _P = ctypes.c_int, ctypes.c_uint, ctypes.c_void_p
 
@@ -45,8 +57,8 @@ def library() -> ctypes.CDLL:
     lib = load("bounce_kernel")
     if lib.zr_bounce_launch.argtypes is None:
         lib.zr_bounce_launch.argtypes = [
-            _P, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _U, _I, _I, _I,
-            _P, _P, _P]
+            _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+            _I, _I, _U, _I, _I, _I, _P, _P, _P]
         lib.zr_bounce_launch.restype = _I
         lib.zr_error_string.argtypes = [_I]
         lib.zr_error_string.restype = ctypes.c_char_p
@@ -76,23 +88,53 @@ def scene_tables(scene: Scene, camera: Camera):
             camera.flat().contiguous())
 
 
+def check_mesh(scene: Scene, tri_flash: TriPlanes | None) -> None:
+    """What the kernel's mesh mode takes: the scene's flash planes with
+    the const-material ``attrs`` table. A mesh whose materials read an
+    image texture has none and raises (ROADMAP.md Queue 1, item 8)."""
+    if tri_flash is None or tri_flash.attrs is None:
+        raise NotImplementedError(
+            "the kernel's mesh mode shades const-material meshes from the flash planes' "
+            "attrs table (pack_tri_planes(..., const_materials=True)); image-textured "
+            "triangle materials on the card wait (ROADMAP.md Queue 1, item 8)")
+    if tri_flash.n_tris != scene.n_triangles:
+        raise ValueError("tri_flash does not hold this scene's triangles")
+
+
 def bounce_trace(scene: Scene, camera: Camera, pixel_base: torch.Tensor, seed,
                  width, height, spp, max_depth, sample_start=0, pixel_stride=None,
-                 n_pixels=None, n_slots: int = 1):
+                 n_pixels=None, n_slots: int = 1, tri_flash: TriPlanes | None = None,
+                 work: torch.Tensor | None = None):
     """Trace samples ``[sample_start, sample_start + spp)`` of every pixel
     of every lane. Arguments and result are those of
     ``wavefront_trace_reference``: ``(slot_sums (n_slots, N, 3) f32,
-    counters (6,) int64)``."""
-    global LAUNCHES
+    counters (6,) int64)``. A scene with triangles needs ``tri_flash``,
+    its flash planes with the const-material ``attrs`` table, on a CUDA
+    device (``render.flash_pack_cached``); on the CPU they are optional
+    (without them the plain wavefront uses the brute force).
+    ``work``, an int64 tensor of ``len(WORK_FIELDS)`` on the card, has the
+    work done added to it by a counting build of the kernel (slower; for
+    pricing a bound, not for rendering). The plain version counts nothing."""
+    global LAUNCHES, MESH_LAUNCHES
     dev = pixel_base.device
     if dev.type == "cpu":
         return wavefront_trace_reference(
             scene, camera, pixel_base, seed, width, height, spp, max_depth,
-            sample_start, pixel_stride, n_pixels, n_slots)
+            sample_start, pixel_stride, n_pixels, n_slots, tri_flash=tri_flash)
     if dev.type != "cuda":
         raise ValueError(f"bounce_trace runs on cpu or cuda tensors, not {dev.type}")
 
-    check_sphere_scene(scene)  # <= render.MAX_SPHERES spheres, no triangles
+    mesh = scene.n_triangles > 0
+    if not (0 if mesh else 1) <= scene.n_spheres <= MAX_SPHERES:
+        raise NotImplementedError(
+            f"the kernel takes 1..{MAX_SPHERES} spheres (0.. with a mesh), got "
+            f"{scene.n_spheres}")
+    if mesh:
+        check_mesh(scene, tri_flash)
+        check_planes(tri_flash, dev)
+    if work is not None and (work.device != dev or work.dtype != torch.int64
+                             or work.shape != (len(WORK_FIELDS),)):
+        raise ValueError(f"work must be an int64 ({len(WORK_FIELDS)},) tensor on {dev}")
     if scene.mat_type.shape[0] > MAX_MATS:
         raise ValueError(f"the kernel takes <= {MAX_MATS} materials")
     for name, t in zip(scene._fields, scene):
@@ -119,6 +161,12 @@ def bounce_trace(scene: Scene, camera: Camera, pixel_base: torch.Tensor, seed,
     atlas = scene.atlas.contiguous()
     spheres, mats, cam = scene_tables(scene, camera)
 
+    if mesh:
+        mesh_ptrs = (tri_flash.planes.data_ptr(), tri_flash.bounds.data_ptr(),
+                     tri_flash.attrs.data_ptr(), tri_flash.root.data_ptr(), tri_flash.n_chunks)
+    else:
+        mesh_ptrs = (None, None, None, None, 0)
+
     slot_sums = torch.zeros((n_slots, n, 3), dtype=torch.float32, device=dev)
     counters = torch.zeros((N_COUNTERS,), dtype=torch.int64, device=dev)
     lib = library()
@@ -126,11 +174,13 @@ def bounce_trace(scene: Scene, camera: Camera, pixel_base: torch.Tensor, seed,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.zr_bounce_launch(
             spheres.data_ptr(), spheres.shape[0], mats.data_ptr(), mats.shape[0],
-            cam.data_ptr(), atlas.data_ptr(), atlas.shape[2], base.data_ptr(), n,
-            width, height, sample_start, spp, max_depth, int(seed) & 0xFFFFFFFF,
+            cam.data_ptr(), atlas.data_ptr(), atlas.shape[2], *mesh_ptrs,
+            None if work is None else work.data_ptr(), base.data_ptr(),
+            n, width, height, sample_start, spp, max_depth, int(seed) & 0xFFFFFFFF,
             stride, n_pix, n_slots, slot_sums.data_ptr(), counters.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"bounce kernel launch failed: {lib.zr_error_string(err).decode()}")
     LAUNCHES += 1
+    MESH_LAUNCHES += int(mesh)
     return slot_sums, counters

@@ -1,7 +1,7 @@
 """Wavefront path-tracing engine and the ``render()`` entry point.
 
-Counterpart of ``zraytrace_tpu/render.py`` for sphere-only scenes. The
-plain wavefront here (``wavefront_trace``) defines the event-counter
+Counterpart of ``zraytrace_tpu/render.py`` for sphere and mesh scenes.
+The plain wavefront here (``wavefront_trace``) defines the event-counter
 semantics, exactly as the JAX engine does: one lane per pixel slot, all
 lanes advanced one bounce per iteration, a lane regenerating its next
 camera sample as soon as a path ends. It is the CPU engine and the
@@ -19,6 +19,7 @@ in place of the JAX package's two-limb uint32 pairs.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 import time
 
@@ -31,10 +32,13 @@ from zraytrace_tpu_torch import vecmath as vm
 from zraytrace_tpu_torch.config import T_MIN, RenderParams
 from zraytrace_tpu_torch.geometry.sphere import (
     BIG,
+    intersect_spheres,
     intersect_spheres_fused,
     sphere_attributes,
+    sphere_surface,
 )
-from zraytrace_tpu_torch.scene import Scene
+from zraytrace_tpu_torch.geometry.triangle import intersect_triangles, triangle_surface
+from zraytrace_tpu_torch.scene import Scene, mesh_materials_const
 
 # Counter slots, mirroring Progress (raytrace.zig:20-34), plus iteration
 # telemetry: the number of lockstep wavefront steps, which equals the
@@ -82,35 +86,82 @@ def background_color(d: torch.Tensor) -> torch.Tensor:
     return (1.0 - t)[..., None] * white + t[..., None] * blue
 
 
-def check_sphere_scene(scene: Scene) -> None:
-    """The port traces sphere-only scenes with at most ``MAX_SPHERES``
-    spheres; anything else waits for the mesh slice."""
+def trace_closest(scene: Scene, o, d, t_min=T_MIN, t_max=BIG, tri_flash=None):
+    """Closest-hit query over all primitives (the JAX ``trace_closest``).
+    Returns dict with: hit (N,), t, point (N,3), normal (N,3) flipped
+    against the ray, front_face (N,), uv (N,2), mat_id (N,).
+
+    Sphere-only scenes of at most ``MAX_SPHERES`` spheres take the fused
+    running winner. Otherwise spheres and triangles are intersected
+    separately and merged by a strict ``tt < ts``: spheres keep exact ties,
+    as every reference scene inserts spheres before its mesh
+    (raytrace.zig:75-81). Triangles come from the brute force, or, given
+    ``tri_flash`` planes, from the flash winner seeded with the sphere
+    distance (``ops/flash_intersect.py``: the CUDA kernel for tensors on
+    the card, its plain version on the CPU); with its ``attrs`` table the
+    hit normal and material are one row of it.
+    """
+    n = o.shape[0]
+    if scene.n_triangles == 0 and 0 < scene.n_spheres <= MAX_SPHERES:
+        fs = intersect_spheres_fused(o, d, scene.sph_center, scene.sph_radius,
+                                     scene.sph_mat, t_min, t_max)
+        hit = fs["hit"]
+        # attributes at a safe t on miss lanes (their values are discarded)
+        t_attr = torch.where(hit, fs["t"], 1.0)
+        point, outward, uv = sphere_attributes(o, d, t_attr, fs["center"], fs["radius"])
+        front_face = vm.dot(d, outward) <= 0.0  # hit_record.zig:28-41
+        normal = torch.where(front_face[:, None], outward, -outward)
+        return dict(hit=hit, t=fs["t"], point=point, normal=normal,
+                    front_face=front_face, uv=uv, mat_id=fs["mat_id"])
+
+    from zraytrace_tpu_torch.ops.flash_intersect import flash_intersect_triangles
+
+    zeros3 = torch.zeros_like(o)
+    if scene.n_spheres > 0:
+        ts, si, _ = intersect_spheres(o, d, scene.sph_center, scene.sph_radius, t_min, t_max)
+    else:
+        ts = torch.full((n,), BIG, dtype=torch.float32, device=o.device)
+        si = torch.zeros((n,), dtype=torch.int32, device=o.device)
+    flash_attrs = False
+    if tri_flash is not None and scene.n_triangles > 0:
+        tt, ti, _, uv_t = flash_intersect_triangles(tri_flash, o, d, t_min, t_init=ts)
+        flash_attrs = tri_flash.attrs is not None
+    else:
+        tt, ti, _, uv_t = intersect_triangles(o, d, scene.tri_a, scene.tri_b, scene.tri_c,
+                                              t_min, t_max)
+    use_tri = tt < ts
+    t = torch.where(use_tri, tt, ts)
+    hit = t < BIG
+    t_attr = torch.where(hit, t, 1.0)
+
+    if scene.n_spheres > 0:
+        p_s, n_s, uv_s = sphere_surface(o, d, t_attr, si, scene.sph_center, scene.sph_radius)
+        mat_s = scene.sph_mat[si.long()]
+    else:
+        p_s, n_s = zeros3, zeros3
+        uv_s = torch.zeros((n, 2), dtype=torch.float32, device=o.device)
+        mat_s = torch.zeros((n,), dtype=torch.int32, device=o.device)
     if scene.n_triangles > 0:
-        raise NotImplementedError(
-            "scenes with triangles need the mesh slice (ROADMAP.md Queue 1 "
-            "item 8)")
-    if not 0 < scene.n_spheres <= MAX_SPHERES:
-        raise NotImplementedError(
-            f"the sphere path takes 1..{MAX_SPHERES} spheres, got "
-            f"{scene.n_spheres}")
+        if flash_attrs:
+            at = tri_flash.attrs[ti.long()]
+            p_t, n_t = vm.ray_at(o, d, t_attr), at[:, :3]
+            mat_t = at[:, 3].to(torch.int32)
+        else:
+            p_t, n_t = triangle_surface(o, d, t_attr, ti, scene.tri_a, scene.tri_b, scene.tri_c)
+            mat_t = scene.tri_mat[ti.long()]
+    else:
+        p_t, n_t = zeros3, zeros3
+        mat_t = torch.zeros((n,), dtype=torch.int32, device=o.device)
 
-
-def trace_closest(scene: Scene, o, d, t_min=T_MIN, t_max=BIG):
-    """Closest-hit query (the sphere-only branch of the JAX
-    ``trace_closest``). Returns dict with: hit (N,), t, point (N,3),
-    normal (N,3) flipped against the ray, front_face (N,), uv (N,2),
-    mat_id (N,)."""
-    check_sphere_scene(scene)
-    fs = intersect_spheres_fused(o, d, scene.sph_center, scene.sph_radius,
-                                 scene.sph_mat, t_min, t_max)
-    hit = fs["hit"]
-    # attributes at a safe t on miss lanes (their values are discarded)
-    t_attr = torch.where(hit, fs["t"], 1.0)
-    point, outward, uv = sphere_attributes(o, d, t_attr, fs["center"], fs["radius"])
+    u3 = use_tri[:, None]
+    point = torch.where(u3, p_t, p_s)
+    outward = torch.where(u3, n_t, n_s)
+    uv = torch.where(u3, uv_t, uv_s)
+    mat_id = torch.where(use_tri, mat_t, mat_s)
     front_face = vm.dot(d, outward) <= 0.0  # hit_record.zig:28-41
     normal = torch.where(front_face[:, None], outward, -outward)
-    return dict(hit=hit, t=fs["t"], point=point, normal=normal,
-                front_face=front_face, uv=uv, mat_id=fs["mat_id"])
+    return dict(hit=hit, t=t, point=point, normal=normal,
+                front_face=front_face, uv=uv, mat_id=mat_id)
 
 
 def camera_rays(camera: cam.Camera, seed, pixel_ids, sample_idx, width, height):
@@ -125,9 +176,12 @@ def camera_rays(camera: cam.Camera, seed, pixel_ids, sample_idx, width, height):
 
 def wavefront_trace(scene: Scene, camera: cam.Camera, pixel_base: torch.Tensor,
                     seed, width, height, spp, max_depth, sample_start=0,
-                    pixel_stride=None, n_pixels=None, n_slots: int = 1):
+                    pixel_stride=None, n_pixels=None, n_slots: int = 1, tri_flash=None):
     """Trace samples ``[sample_start, sample_start + spp)`` of the pixels
-    of each lane, the plain PyTorch way.
+    of each lane, the plain PyTorch way. ``tri_flash`` (packed planes)
+    routes triangles through the flash winner, else the brute force
+    (``trace_closest``). On the card the flash winner is its CUDA kernel,
+    as the JAX package's XLA wavefront calls its Pallas flash kernel.
 
     Lane ``i`` processes pixels ``pixel_base[i] + k * pixel_stride`` for
     ``k in [0, n_slots)`` (stopping at the first id >= ``n_pixels``), one
@@ -135,7 +189,6 @@ def wavefront_trace(scene: Scene, camera: cam.Camera, pixel_base: torch.Tensor,
 
     Returns ``(slot_sums (n_slots, N, 3) f32, counters (6,) int64)``.
     """
-    check_sphere_scene(scene)
     dev = pixel_base.device
     n = pixel_base.shape[0]
     base = pixel_base.to(torch.int32)
@@ -171,7 +224,7 @@ def wavefront_trace(scene: Scene, camera: cam.Camera, pixel_base: torch.Tensor,
         exhausted = active & (path_depth >= max_depth)
         processing = active & ~exhausted
 
-        h = trace_closest(scene, o, d)
+        h = trace_closest(scene, o, d, tri_flash=tri_flash)
         rnd = zrng.uniform4(seed, pixel_ids, sample_idx, path_depth, zrng.STREAM_SCATTER)
         new_dir, atten, absorbed = mat.scatter(
             scene, d, h["normal"], h["front_face"], h["uv"], h["mat_id"], rnd)
@@ -215,14 +268,55 @@ def wavefront_trace(scene: Scene, camera: cam.Camera, pixel_base: torch.Tensor,
     return slot_sums, counters
 
 
-def render(scene: Scene, camera: cam.Camera, params: RenderParams, device="cpu"):
+_FLASH_MEMO: dict = {}
+
+
+def flash_pack_cached(scene: Scene):
+    """BVH-ordered flash planes of a scene's mesh, on the scene's device,
+    memoized by content (``flash_pack_cached``, ``zraytrace_tpu/
+    render.py:542``): the BVH build and the packing are scene
+    preprocessing, done once per mesh."""
+    from zraytrace_tpu_torch.geometry.bvh import build_tri_bvh
+    from zraytrace_tpu_torch.ops.flash_intersect import pack_tri_planes
+
+    const = mesh_materials_const(scene)
+    h = hashlib.sha256()
+    for a in (scene.tri_a, scene.tri_b, scene.tri_c, scene.tri_mat):
+        h.update(a.detach().cpu().contiguous().numpy().tobytes())
+    h.update(b"c" if const else b"n")
+    key = (h.hexdigest(), str(scene.tri_a.device))
+    planes = _FLASH_MEMO.get(key)
+    if planes is None:
+        a, b, c, m = (x.cpu() for x in (scene.tri_a, scene.tri_b, scene.tri_c, scene.tri_mat))
+        order = build_tri_bvh(a, b, c).prim_order
+        planes = pack_tri_planes(a, b, c, order=order, tri_mat=m,
+                                 const_materials=const).to(scene.tri_a.device)
+        while len(_FLASH_MEMO) >= 4:
+            _FLASH_MEMO.pop(next(iter(_FLASH_MEMO)))
+        _FLASH_MEMO[key] = planes
+    return planes
+
+
+def mesh_routing(scene: Scene, device):
+    """The triangle route of ``render()`` (``mesh_routing``,
+    ``zraytrace_tpu/render.py:576``): flash planes for a mesh scene on a
+    CUDA device, where the bounce kernel's mesh mode reads them; ``None``
+    on the CPU, where the plain wavefront uses the brute force, as the
+    JAX package does off the TPU."""
+    if scene.n_triangles == 0 or torch.device(device).type != "cuda":
+        return None
+    return flash_pack_cached(scene)
+
+
+def render(scene: Scene, camera: cam.Camera, params: RenderParams, device="cuda"):
     """Render a full image on ``device``. Returns ``(image (H, W, 3) f32
     CPU tensor, RenderStats)``.
 
     Row 0 of the image is the *bottom* (the PNG writer flips). On a CUDA
-    device the bounce loop runs in the CUDA kernel; on the CPU in the
-    plain wavefront. The device is the caller's choice: asking for CUDA
-    without a card raises.
+    device the bounce loop runs in the CUDA kernel (mesh scenes in its
+    mesh mode, over flash planes packed once per mesh); on the CPU in the
+    plain wavefront, only when the caller asks for it. Without a card the
+    default device raises.
     """
     from zraytrace_tpu_torch.ops.bounce_kernel import bounce_trace, library
 
@@ -238,12 +332,13 @@ def render(scene: Scene, camera: cam.Camera, params: RenderParams, device="cpu")
     n_slots = math.ceil(n_pixels / n_lanes)
     scene = scene.to(device)
     camera = camera.to(device)
+    tri_flash = mesh_routing(scene, device)
     base = torch.arange(n_lanes, dtype=torch.int32, device=device)
 
     t1 = time.perf_counter()
     sums, counters = bounce_trace(
         scene, camera, base, params.seed, w, h, spp, params.max_depth,
-        0, n_lanes, n_pixels, n_slots)
+        0, n_lanes, n_pixels, n_slots, tri_flash=tri_flash)
     totals = counters.cpu().tolist()  # waits for the device
     t_dev = time.perf_counter()
     # pixel p lives at (slot p // n_lanes, lane p % n_lanes)

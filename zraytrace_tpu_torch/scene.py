@@ -6,7 +6,7 @@ shapes and dtypes, held as torch tensors on one device.
 - spheres: centers ``(S,3)``, signed radii ``(S,)`` (a negative radius
   keeps the reference's inward-normal hollow-glass trick, sphere.zig:45),
   material ids ``(S,)``
-- triangles: vertex arrays ``(T,3)`` each (empty until the mesh slice)
+- triangles: vertex arrays ``(T,3)`` each, material ids ``(T,)``
 - materials: type/texture/ior tables (material.zig:27-29)
 - textures: type/color/atlas tables (texture.zig:7-9); images live in one
   padded atlas ``(A, H, W, 3)``.
@@ -79,6 +79,17 @@ class Scene(NamedTuple):
         return Scene(*(t.to(device) for t in self))
 
 
+def mesh_materials_const(scene: Scene) -> bool:
+    """True when the scene has triangles and no triangle material reads
+    an image texture — true for every reference scene (meshes are single
+    const-color materials, obj_reader.zig:114). Such a mesh is shaded from
+    the flash planes' ``attrs`` table (``ops/flash_intersect.py``)."""
+    if scene.n_triangles == 0:
+        return False
+    tex = scene.mat_tex[scene.tri_mat.long()].long()
+    return not bool((scene.tex_type[tex] == TEX_IMAGE).any())
+
+
 class SceneBuilder:
     """Host-side scene assembly in numpy (scenes.zig:26-265); ``build()``
     returns the tensor ``Scene`` on the requested device.
@@ -89,6 +100,7 @@ class SceneBuilder:
 
     def __init__(self):
         self._sph = []  # (center, radius, mat_id)
+        self._tri = []  # (a, b, c, mat_ids) blocks
         self._mats = []  # (type, tex_id, ior)
         self._texs = []  # (type, color, atlas_id, u_off, v_off)
         self._images = []  # (H, W, 3) f32 arrays
@@ -135,6 +147,13 @@ class SceneBuilder:
     def add_sphere(self, center, radius: float, mat_id: int) -> None:
         self._sph.append((np.asarray(center, np.float32), float(radius), mat_id))
 
+    def add_triangles(self, a: np.ndarray, b: np.ndarray, c: np.ndarray, mat_id: int) -> None:
+        """Add a block of triangles sharing one material (the OBJ-model
+        case: one material per model, obj_reader.zig:114)."""
+        self._tri.append((np.asarray(a, np.float32), np.asarray(b, np.float32),
+                          np.asarray(c, np.float32),
+                          np.full((a.shape[0],), mat_id, np.int32)))
+
     # -- build ----------------------------------------------------------
     def build_numpy(self) -> dict[str, np.ndarray]:
         """The scene fields as numpy arrays, keyed by ``Scene`` field name."""
@@ -145,9 +164,12 @@ class SceneBuilder:
         for i, (center, radius, mid) in enumerate(self._sph):
             sph_center[i], sph_radius[i], sph_mat[i] = center, radius, mid
 
-        # triangles come with the mesh slice (ROADMAP.md Queue 1 item 8)
-        tri_a = tri_b = tri_c = np.zeros((0, 3), np.float32)
-        tri_mat = np.zeros((0,), np.int32)
+        if self._tri:
+            tri_a, tri_b, tri_c, tri_mat = (
+                np.concatenate([t[k] for t in self._tri]) for k in range(4))
+        else:
+            tri_a = tri_b = tri_c = np.zeros((0, 3), np.float32)
+            tri_mat = np.zeros((0,), np.int32)
 
         M = max(len(self._mats), 1)
         mat_type = np.zeros((M,), np.int32)
@@ -186,7 +208,7 @@ class SceneBuilder:
             tex_offset=tex_offset, atlas_hw=atlas_hw,
         )
 
-    def build(self, device="cpu") -> Scene:
+    def build(self, device="cuda") -> Scene:
         from zraytrace_tpu_torch.convert import scene_from_numpy
 
         return scene_from_numpy(self.build_numpy(), device)

@@ -1,10 +1,7 @@
 """Scene library (scenes.zig:26-277); counterpart of
-``zraytrace_tpu/scenes.py``.
-
-Only scene 1 (threeBalls, the 7-spheres showcase) is ported so far. The
-mesh scenes need the OBJ reader, the BVH and the triangle kernels, which
-ROADMAP.md Queue 1 item 8 ports; asking for them raises
-``NotImplementedError`` naming that item.
+``zraytrace_tpu/scenes.py``, with the same constants. Scene indices 0-5
+match ``render_scene`` (scenes.zig:267-277). Scene 5 (goat) raises
+``FileNotFoundError``: its asset is absent upstream too.
 """
 
 from __future__ import annotations
@@ -15,6 +12,7 @@ from typing import Callable, NamedTuple
 
 from zraytrace_tpu_torch import scene as sc
 from zraytrace_tpu_torch.camera import Camera, make_camera
+from zraytrace_tpu_torch.io.obj import read_obj
 from zraytrace_tpu_torch.io.png import read_png
 from zraytrace_tpu_torch.scene import Scene, SceneBuilder
 
@@ -32,7 +30,35 @@ class BuiltScene(NamedTuple):
     name: str
 
 
-def three_balls(device="cpu") -> BuiltScene:
+# The big ground ball shared by all mesh scenes (scenes.zig:40-43 etc.).
+_EARTH_X = 1.66445508e-01
+_EARTH_Z = 7.37018966e00
+_EARTH_RADIUS = 100.0
+
+
+def _ground(b: SceneBuilder, top: float) -> None:
+    green = b.add_lambertian_color(sc.COLOR_GREEN)
+    b.add_sphere((_EARTH_X, top - _EARTH_RADIUS, _EARTH_Z), _EARTH_RADIUS, green)
+
+
+def _add_model(b: SceneBuilder, obj_name: str, mat_id: int) -> None:
+    a, bb, c = read_obj(assets_dir() / obj_name).tri_vertices
+    b.add_triangles(a, bb, c, mat_id)
+
+
+def _camera(look_from, device) -> Camera:
+    return make_camera(look_from, (0.0, 0.0, 1.0), (0.0, 1.0, 0.0), 45.0, 1.0, device=device)
+
+
+def man_and_ball(device="cuda") -> BuiltScene:
+    """Scene 0 (scenes.zig:26-52): Man.obj in blue metal on the ground."""
+    b = SceneBuilder()
+    _ground(b, top=-2.33)
+    _add_model(b, "man/Man.obj", b.add_metal_color(sc.COLOR_BLUE))
+    return BuiltScene(b.build(device), _camera((0.0, 0.0, -30.0), device), "manAndBall")
+
+
+def three_balls(device="cuda") -> BuiltScene:
     """Scene 1 (scenes.zig:54-100): ground, nitor-logo Lambertian, silver
     mirror, earth-mapped metal, filled glass and a hollow glass bubble
     (nested spheres r=0.9 / r=-0.8, IOR 1.52)."""
@@ -63,24 +89,65 @@ def three_balls(device="cpu") -> BuiltScene:
     return BuiltScene(b.build(device), camera, "threeBalls")
 
 
-SCENES: dict[int, Callable[..., BuiltScene]] = {1: three_balls}
+def bunny_and_ball(device="cuda") -> BuiltScene:
+    """Scene 2 (scenes.zig:102-126): bunny.obj in silver metal."""
+    b = SceneBuilder()
+    _ground(b, top=-0.33)
+    _add_model(b, "bunny/bunny.obj", b.add_metal_color(sc.COLOR_SILVER))
+    return BuiltScene(b.build(device), _camera((0.0, 0.0, -0.5), device), "bunnyAndBall")
 
-# Scenes of the reference that need the mesh slice (ROADMAP.md Queue 1,
-# item 8: triangles, OBJ, BVH and mixed scenes).
-_MESH_SCENES = {0: "manAndBall", 2: "bunnyAndBall", 3: "teapotAndBall",
-                4: "teapotAndBallCircle", 5: "goat"}
+
+def teapot_and_ball(device="cuda") -> BuiltScene:
+    """Scene 3 (scenes.zig:206-231): teapot.obj in blue metal."""
+    b = SceneBuilder()
+    _ground(b, top=-2.33)
+    _add_model(b, "teapot/teapot.obj", b.add_metal_color(sc.COLOR_BLUE))
+    return BuiltScene(b.build(device), _camera((0.0, 0.0, -10.0), device), "teapotAndBall")
+
+
+def teapot_and_ball_circle(device="cuda") -> BuiltScene:
+    """Scene 4 (scenes.zig:168-204): teapot + inward silver sphere
+    (negative radius, scenes.zig:195) + earthmap Lambertian ball."""
+    b = SceneBuilder()
+    earthmap = read_png(assets_dir() / "images" / "earthmap.png")
+    silver = b.add_metal_color(sc.COLOR_SILVER)
+    purple_matte = b.add_lambertian(b.add_image_texture(earthmap))
+    green = b.add_lambertian_color(sc.COLOR_GREEN)
+    blue_metal = b.add_metal_color(sc.COLOR_BLUE)
+    b.add_sphere((0.0, 0.0, 6.0), -2.0, silver)
+    b.add_sphere((3.0, -1.0, 4.0), 1.0, purple_matte)
+    top = -2.33
+    b.add_sphere((_EARTH_X, top - _EARTH_RADIUS, _EARTH_Z), _EARTH_RADIUS, green)
+    _add_model(b, "teapot/teapot.obj", blue_metal)
+    return BuiltScene(b.build(device), _camera((-8.0, 0.0, -10.0), device),
+                      "teapotAndBallCircle")
+
+
+def goat(device="cuda") -> BuiltScene:
+    """Scene 5 (scenes.zig:234-260): high_poly_goat.obj — the asset is
+    absent from the reference repo too, so this raises
+    ``FileNotFoundError``."""
+    b = SceneBuilder()
+    _add_model(b, "high_poly_goat.obj", b.add_metal_color(sc.COLOR_SILVER))
+    _ground(b, top=-2.33)
+    return BuiltScene(b.build(device), _camera((0.0, 0.0, -1.7), device), "goat")
+
+
+SCENES: dict[int, Callable[..., BuiltScene]] = {
+    0: man_and_ball,
+    1: three_balls,
+    2: bunny_and_ball,
+    3: teapot_and_ball,
+    4: teapot_and_ball_circle,
+    5: goat,
+}
 
 
 class UnknownSceneIndex(KeyError):
     """scenes.zig:263-265."""
 
 
-def build_scene(index: int, device="cpu") -> BuiltScene:
-    if index in _MESH_SCENES:
-        raise NotImplementedError(
-            f"scene {index} ({_MESH_SCENES[index]}) holds a mesh; the port "
-            "renders it once ROADMAP.md Queue 1 item 8 (triangles, OBJ, BVH "
-            "and mixed scenes) is done")
+def build_scene(index: int, device="cuda") -> BuiltScene:
     try:
         builder = SCENES[index]
     except KeyError:

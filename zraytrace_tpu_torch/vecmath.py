@@ -18,6 +18,16 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched cross product (vector.zig:70), each component a difference
+    of two separately rounded products. (XLA's CPU backend contracts
+    ``a1*b2 - a2*b1`` into ``fma(a1, b2, -(a2*b1))``, so the JAX
+    function can differ from this in the last bit.)"""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
+
+
 def sqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded f32 square root on every device. torch's CPU
     ``sqrt`` on float32 is a vectorized approximation that is off by one
