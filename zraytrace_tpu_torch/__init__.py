@@ -11,7 +11,10 @@ PyTorch wavefront that the kernel is tested against, only when the caller
 asks for the CPU.
 
 Currently ported: the forward render path of sphere scenes (scene 1) and
-mesh scenes (0, 2, 3, 4). The differentiable path and the sharded paths
+mesh scenes (0, 2, 3, 4), and the differentiable path (``render_diff``,
+edge and REINFORCE gradients, ``inverse.fit``), whose mesh winner pass
+and silhouette-margin selection launch ``csrc/flash_intersect.cu`` and
+``csrc/flash_margins.cu`` on the card. Checkpoints and the sharded paths
 are listed in ROADMAP.md.
 """
 

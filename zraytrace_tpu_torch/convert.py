@@ -2,8 +2,10 @@
 
 Both packages can render the identical scene from the same arrays, e.g.
 ``scene_from_numpy({k: np.asarray(v) for k, v in jax_scene._asdict().items()},
-"cpu")``, and trace the same packed triangles (``tri_planes_from_numpy``).
-Every function takes the device; the default is the card.
+"cpu")``, trace the same packed triangles (``tri_planes_from_numpy``),
+and differentiate from the same parameters (``params_from_numpy``,
+``pose_from_numpy``). Every function takes the device; the default is the
+card.
 """
 
 from __future__ import annotations
@@ -50,3 +52,26 @@ def tri_planes_from_numpy(planes, bounds, n_tris: int, attrs=None, device="cuda"
     bounds = f32(bounds)
     return TriPlanes(f32(planes), bounds, root_box(bounds), int(n_tris),
                      None if attrs is None else f32(attrs))
+
+
+def params_from_numpy(params: dict, device="cuda") -> dict:
+    """Scene parameters (the JAX package's ``inverse.split_scene`` params,
+    a subset of ``DIFF_FIELDS``, as arrays) as f32 tensors on ``device``.
+    Unknown fields raise."""
+    from zraytrace_tpu_torch.inverse import DIFF_FIELDS
+
+    extra = set(params) - set(DIFF_FIELDS)
+    if extra:
+        raise ValueError(f"not differentiable scene fields: {sorted(extra)}")
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
+            for k, v in params.items()}
+
+
+def pose_from_numpy(translation, rotation, scale, device="cuda"):
+    """A ``transforms.Pose`` from arrays (the fields of the JAX ``Pose``
+    in order: ``pose_from_numpy(*map(np.asarray, jax_pose))``)."""
+    from zraytrace_tpu_torch.transforms import Pose
+
+    f32 = lambda x, shape: torch.from_numpy(np.array(x, dtype=np.float32).reshape(shape)).to(
+        device)
+    return Pose(f32(translation, (3,)), f32(rotation, (3,)), f32(scale, ()))

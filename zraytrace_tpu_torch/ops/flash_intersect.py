@@ -21,6 +21,11 @@ machinery, not its contract; a GPU thread culls per ray instead.
 ``flash_intersect_triangles`` launches the kernel for CUDA tensors and
 runs ``flash_intersect_plain`` (the same function in plain PyTorch) for
 CPU tensors; nothing falls back.
+
+The same planes, packed with original ids, feed the silhouette-margin
+selection of the differentiable path: ``flash_margin_select`` launches
+``csrc/flash_margins.cu`` (replacing ``_kernel_rl_margins``, ``:870``)
+for CUDA tensors and runs ``flash_margin_select_plain`` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -36,10 +41,13 @@ from zraytrace_tpu_torch.geometry.triangle import DET_EPS
 
 __all__ = ["TriPlanes", "pack_tri_planes", "root_box", "ray_chunk_reach",
            "flash_intersect_plain", "flash_intersect_triangles", "LAUNCHES", "WORK_FIELDS",
-           "library", "LANE", "N_COMP"]
+           "library", "LANE", "N_COMP", "dilated_bounds", "flash_margin_select_plain",
+           "flash_margin_select", "MARGIN_LAUNCHES", "MARGIN_WORK_FIELDS", "margins_library"]
 
 # Kernel launches made by ``flash_intersect_triangles`` in this process.
 LAUNCHES = 0
+# Kernel launches made by ``flash_margin_select`` in this process.
+MARGIN_LAUNCHES = 0
 
 LANE = 128  # triangles per chunk
 # packed component planes, each (n_chunks, 128):
@@ -49,6 +57,10 @@ N_COMP = 18
 # order: chunk slab tests, chunk visits (128 triangle tests each), and the
 # triangle tests passing the det, t and u stages (csrc/tri_winner.cuh).
 WORK_FIELDS = ("slab", "visits", "det", "t", "u")
+# The work counts ``flash_margin_select(..., work=)`` receives: chunk slab
+# tests, chunk visits, and the triangle tests passing det and t > t_min
+# (csrc/flash_margins.cu).
+MARGIN_WORK_FIELDS = ("slab", "visits", "det", "t")
 
 _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 
@@ -297,3 +309,164 @@ def flash_intersect_triangles(planes: TriPlanes, o, d, t_min, t_init=None, work=
         raise RuntimeError(f"flash kernel launch failed: {lib.zr_error_string(err).decode()}")
     LAUNCHES += 1
     return t, idx, hit, uv
+
+
+def dilated_bounds(bounds):
+    """Chunk boxes ``(C, 8)`` widened on every side by half their extent
+    plus 1e-3 (``flash_margin_select``, ``zraytrace_tpu/ops/
+    flash_intersect.py:1007-1011``): a near-missing ray can pass outside a
+    chunk's box while its barycentric margin is still small."""
+    lo, hi = bounds[:, 0:3], bounds[:, 3:6]
+    pad = 0.5 * (hi - lo) + 1e-3
+    return torch.cat([lo - pad, hi + pad, bounds[:, 6:8]], dim=1).contiguous()
+
+
+def _margin_windows(t_cap):
+    """Per ray: the reach cap (``2 * t_cap``, or ``t_cap`` itself from
+    1e30 up, a miss ray) and the 1e-5 relative guards around ``t_cap``."""
+    tc = t_cap.to(torch.float32)
+    return torch.where(tc >= 1e30, tc, 2.0 * tc), tc * 1.00001, tc * 0.99999
+
+
+def _first_best(vals, run, largest: bool):
+    """Per row of ``vals`` ``(k, 128)``: the best value and the first lane
+    holding it, and whether it strictly beats ``run`` ``(k,)``."""
+    best = vals.amax(1) if largest else vals.amin(1)
+    lane = torch.arange(vals.shape[1], device=vals.device)
+    j = torch.where(vals == best[:, None], lane, vals.shape[1]).amin(1)
+    return best, j, (best > run) if largest else (best < run)
+
+
+def flash_margin_select_plain(planes: TriPlanes, o, d, t_cap, t_min):
+    """The margin selection in plain PyTorch, chunk after chunk: the rays
+    whose own slab test reaches a chunk's dilated box within ``(t_min,
+    cap]`` are gathered and tested against its 128 triangles in the
+    kernel's arithmetic order; each running best takes the first triangle
+    that strictly beats it. Every mask requires ``det >= 1e-6`` and
+    ``t > t_min`` (the occlusion mask through ``t > t_cap * (1 + 1e-5)``,
+    as a hit's ``t_cap`` exceeds ``t_min``).
+
+    Returns ``(near_id, occ_id, win_id)`` as ``flash_margin_select``.
+    """
+    if planes.attrs is not None:
+        raise ValueError("margin selection needs original ids: pack the planes without "
+                         "attrs (diff_trace.pack_for_diff)")
+    n, dev = o.shape[0], o.device
+    tc = t_cap.to(torch.float32)
+    cap, texcl, tlow = _margin_windows(tc)
+    bd = dilated_bounds(planes.bounds)
+    f32 = dict(dtype=torch.float32, device=dev)
+    mb = torch.full((n,), -BIG, **f32)
+    tob = torch.full((n,), BIG, **f32)
+    twb = torch.full((n,), BIG, **f32)
+    ids = torch.full((3, n), -1, dtype=torch.int32, device=dev)  # near, occ, win
+    inv = _inv_dir(d)
+    ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
+    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+    pxv = oy * dz - oz * dy
+    pyv = oz * dx - ox * dz
+    pzv = ox * dy - oy * dx
+    for ci in range(planes.n_chunks):
+        box = bd[ci]
+        near, far = _slab(box[0:3], box[3:6], o, inv)
+        rays = torch.nonzero((near <= far) & (far > t_min) & (near <= cap))[:, 0]
+        if rays.numel() == 0:
+            continue
+        g = lambda x: x[rays][:, None]
+        rdx, rdy, rdz = g(dx), g(dy), g(dz)
+        rpx, rpy, rpz = g(pxv), g(pyv), g(pzv)
+        (e1x, e1y, e1z, e2x, e2y, e2z, fnx, fny, fnz,
+         qax, qay, qaz, rax, ray_, raz, adf, _, orig) = planes.planes[:, ci, :]
+        det = -(rdx * fnx + rdy * fny + rdz * fnz)
+        safe = torch.abs(det) > 1e-12
+        inv_det = 1.0 / torch.where(safe, det, 1.0)
+        u = (rpx * e2x + rpy * e2y + rpz * e2z - (rdx * qax + rdy * qay + rdz * qaz)) * inv_det
+        v = -(rpx * e1x + rpy * e1y + rpz * e1z - (rdx * rax + rdy * ray_ + rdz * raz)) * inv_det
+        t = (g(ox) * fnx + g(oy) * fny + g(oz) * fnz - adf) * inv_det
+        m = torch.minimum(torch.minimum(u, v), 1.0 - u - v)
+        ok = (det >= DET_EPS) & (t > t_min)
+        inside = ok & (m >= 0.0)
+        occ = inside & (t > g(texcl))
+        cands = (
+            (mb, torch.where(ok & (t < g(tc)) & (m < 0.0), m, -BIG), True),
+            (tob, torch.where(occ, t, BIG), False),
+            (twb, torch.where(inside & ~occ & (t >= g(tlow)), t, BIG), False),
+        )
+        for k, (run, vals, largest) in enumerate(cands):
+            best, j, better = _first_best(vals, run[rays], largest)
+            rw = rays[better]
+            run[rw] = best[better]
+            ids[k, rw] = orig[j[better]].to(torch.int32)
+    return ids[0], ids[1], ids[2]
+
+
+def margins_library() -> ctypes.CDLL:
+    """The margin kernel's library, built from ``csrc/flash_margins.cu`` on
+    first use (``ops/build.py``)."""
+    from zraytrace_tpu_torch.ops.build import load
+
+    lib = load("flash_margins")
+    if lib.zr_margins_launch.argtypes is None:
+        lib.zr_margins_launch.argtypes = [_P, _P, _I, _P, _P, _P, _F, _I, _P, _P, _P, _P, _P]
+        lib.zr_margins_launch.restype = _I
+        lib.zr_error_string.argtypes = [_I]
+        lib.zr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_margin_select(planes: TriPlanes, o, d, t_cap, t_min, work=None):
+    """Silhouette-margin selection, the contract of the JAX function
+    (``zraytrace_tpu/ops/flash_intersect.py:982``): per ray, ``(near_id,
+    occ_id, win_id)`` ``(N,)`` int32 original triangle ids, -1 where no
+    triangle qualified —
+
+    - near: the largest barycentric margin ``m = min(u, v, 1-u-v) < 0``
+      among front crossings with ``t_min < t < t_cap``;
+    - occ: the least ``t > t_cap * (1 + 1e-5)`` among interior crossings;
+    - win: the least ``t`` among interior crossings within the 1e-5
+      relative guards around ``t_cap``.
+
+    ``t_cap`` ``(N,)`` is the ray's hit distance (3.4e38 on a miss). Chunks
+    count when the ray reaches their dilated box within ``(t_min,
+    2 * t_cap]``. Ties go to the first triangle in packed order; the TPU
+    kernel picks the lowest sublane. ``planes`` must carry original ids
+    (no ``attrs``). Any ``N``. ``work``, an int64 tensor of
+    ``len(MARGIN_WORK_FIELDS)`` on the card, receives the work done from a
+    counting build of the kernel (slower; for pricing a bound). Launches
+    ``csrc/flash_margins.cu`` for CUDA tensors and runs
+    ``flash_margin_select_plain`` for CPU tensors.
+    """
+    global MARGIN_LAUNCHES
+    if planes.attrs is not None:
+        raise ValueError("margin selection needs original ids: pack the planes without "
+                         "attrs (diff_trace.pack_for_diff)")
+    dev = o.device
+    if dev.type == "cpu":
+        return flash_margin_select_plain(planes, o, d, t_cap, t_min)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_margin_select runs on cpu or cuda tensors, not {dev.type}")
+    n = o.shape[0]
+    check_planes(planes, dev)
+    for name, x in (("o", o), ("d", d)):
+        if x.device != dev or x.dtype != torch.float32 or x.shape != (n, 3):
+            raise ValueError(f"{name} must be ({n}, 3) float32 on {dev}")
+    if t_cap.device != dev or t_cap.shape != (n,):
+        raise ValueError(f"t_cap must be ({n},) on {dev}")
+    if work is not None and (work.device != dev or work.dtype != torch.int64
+                             or work.shape != (len(MARGIN_WORK_FIELDS),)):
+        raise ValueError(f"work must be an int64 ({len(MARGIN_WORK_FIELDS)},) tensor on {dev}")
+    o, d = o.contiguous(), d.contiguous()
+    tc = t_cap.to(torch.float32).contiguous()
+    bd = dilated_bounds(planes.bounds)
+    ids = torch.empty((3, n), dtype=torch.int32, device=dev)
+    lib = margins_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.zr_margins_launch(
+            planes.planes.data_ptr(), bd.data_ptr(), planes.n_chunks, o.data_ptr(),
+            d.data_ptr(), tc.data_ptr(), float(t_min), n, ids[0].data_ptr(), ids[1].data_ptr(),
+            ids[2].data_ptr(), None if work is None else work.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"margin kernel launch failed: {lib.zr_error_string(err).decode()}")
+    MARGIN_LAUNCHES += 1
+    return ids[0], ids[1], ids[2]

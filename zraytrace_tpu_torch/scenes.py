@@ -133,6 +133,19 @@ def goat(device="cuda") -> BuiltScene:
     return BuiltScene(b.build(device), _camera((0.0, 0.0, -1.7), device), "goat")
 
 
+def teapot_on_ground(device="cuda") -> BuiltScene:
+    """The teapot pose fit's scene (``tools/diff_bench.py:149-158``,
+    ``examples/mesh_fit.py``): the 6,320-triangle teapot in red Lambertian
+    on a green ground sphere, seen from above and in front. Not one of the
+    reference's numbered scenes."""
+    b = SceneBuilder()
+    b.add_sphere((0.0, -102.33, 7.0), 100.0, b.add_lambertian_color(sc.COLOR_GREEN))
+    _add_model(b, "teapot/teapot.obj", b.add_lambertian_color((0.7, 0.15, 0.1)))
+    camera = make_camera((0.0, 3.0, -9.0), (0.0, 1.0, 5.0), (0.0, 1.0, 0.0), 50.0, 1.0,
+                         device=device)
+    return BuiltScene(b.build(device), camera, "teapotOnGround")
+
+
 SCENES: dict[int, Callable[..., BuiltScene]] = {
     0: man_and_ball,
     1: three_balls,
