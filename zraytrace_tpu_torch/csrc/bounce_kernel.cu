@@ -22,6 +22,8 @@
 // and material branches, not bytes: a ray reads ~1 texel. There is no
 // matrix work, so no wgmma or TMA. The scene tables (spheres (S,5),
 // materials (M,11), camera (12)) sit in shared memory.
+// PCG4D and the sphere winner are the device functions of
+// bounce_common.cuh, which the bounce-body probe (probe_body.cu) times.
 //
 // Mesh mode (the template parameter MESH, so the sphere-only kernel is
 // compiled as before). The TPU kernel blocks a segment that can reach the
@@ -58,6 +60,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bounce_common.cuh"
 #include "tri_winner.cuh"
 
 namespace {
@@ -65,7 +68,6 @@ namespace {
 constexpr int MAX_SPHERES = 32;
 constexpr int MAX_MATS = 32;
 constexpr int BLOCK = 256;
-constexpr float BIG = 3.4e38f;
 constexpr float T_MIN = 1e-3f;
 constexpr float PI_F = 3.14159265358979323846f;
 constexpr float TWO_PI_F = 6.28318530717958647692f;
@@ -81,43 +83,17 @@ enum {
   M_TYPE, M_IOR, M_TEXTYPE, M_R, M_G, M_B, M_BASE, M_UOFF, M_VOFF, M_TH, M_TW,
   M_COLS
 };
-// sphere table columns
-enum { S_CX, S_CY, S_CZ, S_R, S_MAT, S_COLS };
-
 enum { C_RAYS, C_REFLECTIONS, C_BACKGROUND, C_RECURSION, C_SAMPLES, C_ITERS };
 
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ float dot3(V3 a, V3 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z;
-}
-
-// PCG4D (Jarzynski & Olano 2020) over (pixel, sample, bounce, seed^stream),
-// bit-identical to zraytrace_tpu/rng.py pcg4d + _to_unit_float.
-__device__ __forceinline__ float4 uniform4(uint32_t seed_c, uint32_t pixel,
-                                           uint32_t sample, uint32_t bounce) {
-  uint32_t x = pixel * 1664525u + 1013904223u;
-  uint32_t y = sample * 1664525u + 1013904223u;
-  uint32_t z = bounce * 1664525u + 1013904223u;
-  uint32_t w = seed_c * 1664525u + 1013904223u;
-  x += y * w;
-  y += z * x;
-  z += x * y;
-  w += y * z;
-  x ^= x >> 16;
-  y ^= y >> 16;
-  z ^= z >> 16;
-  w ^= w >> 16;
-  x += y * w;
-  y += z * x;
-  z += x * y;
-  w += y * z;
-  const float k = 1.0f / 16777216.0f;
-  return make_float4((float)(x >> 8) * k, (float)(y >> 8) * k,
-                     (float)(z >> 8) * k, (float)(w >> 8) * k);
-}
+using zr::dot3;
+using zr::uniform4;
+using zr::V3;
+using zr::S_COLS;
+using zr::S_CX;
+using zr::S_CY;
+using zr::S_CZ;
+using zr::S_R;
+using zr::S_MAT;
 
 __device__ __forceinline__ V3 normalize(V3 v) {
   float len = sqrtf(dot3(v, v));
@@ -223,30 +199,10 @@ bounce_kernel(const float* __restrict__ sph_g, int n_sph,
           }
           ++n_rays;
 
-          // fused sphere winner; strict < keeps the first sphere on ties
-          const float o_dot_d = dot3(o, d);
-          const float o_sq = dot3(o, o);
-          float t_best = BIG;
-          int win = -1;
-          for (int si = 0; si < n_sph; ++si) {
-            const V3 c{sph[si * S_COLS + S_CX], sph[si * S_COLS + S_CY],
-                       sph[si * S_COLS + S_CZ]};
-            const float r = sph[si * S_COLS + S_R];
-            const float half_b = o_dot_d - dot3(d, c);
-            const float cc = o_sq - 2.0f * dot3(o, c) + (dot3(c, c) - r * r);
-            const float disc = half_b * half_b - cc;
-            if (COUNT && disc > 0.0f) ++n_disc;
-            const float root = disc > 0.0f ? sqrtf(disc) : 0.0f;
-            const float t1 = -half_b - root;
-            const float t2 = -half_b + root;
-            const bool ok1 = (t1 > T_MIN) && (t1 < BIG);
-            const bool ok2 = (t2 > T_MIN) && (t2 < BIG);
-            const float t = ok1 ? t1 : t2;
-            if (disc >= 0.0f && (ok1 || ok2) && t < t_best) {
-              t_best = t;
-              win = si;
-            }
-          }
+          // fused sphere winner (bounce_common.cuh); strict < keeps the
+          // first sphere on ties
+          float t_best;
+          const int win = zr::sphere_winner<COUNT>(sph, n_sph, o, d, T_MIN, t_best, n_disc);
 
           // mesh mode: the flash winner below the sphere winner's t
           bool tri = false;

@@ -1,0 +1,187 @@
+"""The probes' shared harness: device choice, variant selection, the
+card line, CUDA-event timing and the kernel/plain comparison.
+
+Each probe module (``rng_probe``, ``inkernel_texel_probe``,
+``body_probe``, ``flash3_probe``) is a micro-benchmark with a
+hand-written CUDA kernel (``csrc/probe_*.cu``) and a plain PyTorch
+version of the same function. Its ``measure(device, variants)`` returns
+one row per variant; on the card it holds the kernel against the plain
+version and raises ``ProbeMismatch`` where they disagree, so a variant
+that fails to build, launch or agree ends the process with an error. With
+``--cpu`` only the plain versions run, timed on the host clock.
+
+A row (``dict``): ``probe``, ``variant``, ``ms`` (the kernel's time for
+one launch of the TPU tool's shape, CUDA events), ``plain_ms`` (the plain
+version's time for the same work), ``per`` and ``unit`` (the kernel's
+time per lane, element, texel or triangle pair, as the tool printed it),
+``max_abs_err`` (kernel against plain) and ``device``. On the host
+``ms`` is None and ``plain_ms`` is host time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import time
+
+import torch
+
+__all__ = ["ProbeMismatch", "device_from_argv", "select", "card_line", "time_ms", "time_graph",
+           "bind", "launch", "compare", "format_row", "main_for"]
+
+
+class ProbeMismatch(RuntimeError):
+    """A probe kernel disagreed with its plain version."""
+
+
+def device_from_argv(argv) -> tuple[torch.device, list[str]]:
+    """(device, variant names) from a probe's arguments: ``--cpu`` runs
+    the plain versions on the host; otherwise the card is required."""
+    names = [a for a in argv if not a.startswith("-")]
+    unknown = [a for a in argv if a.startswith("-") and a != "--cpu"]
+    if unknown:
+        raise ValueError(f"unknown options {unknown}; the only option is --cpu")
+    if "--cpu" in argv:
+        return torch.device("cpu"), names
+    if not torch.cuda.is_available():
+        raise RuntimeError("the probes run on a CUDA device; pass --cpu to run the plain "
+                           "versions on the host")
+    return torch.device("cuda", 0), names
+
+
+def select(names, variants) -> list[str]:
+    """The variants named (all when none is), in the given order."""
+    unknown = [n for n in names if n not in variants]
+    if unknown:
+        raise ValueError(f"unknown variants {unknown}; choose from {list(variants)}")
+    return list(names) or list(variants)
+
+
+def card_line() -> str:
+    """``name, power limit`` of card 0, as nvidia-smi reports them."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if proc.returncode != 0 or not proc.stdout.strip():
+        raise RuntimeError(f"nvidia-smi failed: {proc.stderr.strip()}")
+    return proc.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, device: torch.device, repeats: int = 5):
+    """(result, milliseconds per call) after one warm-up call: CUDA events
+    around ``repeats`` calls on the card, the host clock on the CPU."""
+    result = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(repeats):
+            result = fn()
+        end.record()
+        torch.cuda.synchronize(device)
+        return result, start.elapsed_time(end) / repeats
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        result = fn()
+    return result, (time.perf_counter() - t0) * 1e3 / repeats
+
+
+def time_graph(fn, device: torch.device, launches: int = 20) -> float:
+    """Milliseconds per call of ``fn``, a few microseconds of device work,
+    timed as one CUDA graph of ``launches`` calls (so the host's launch
+    overhead does not sit between them); the host clock on the CPU."""
+    if device.type != "cuda":
+        return time_ms(fn, device)[1]
+    fn()  # build and warm up outside the capture
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / launches
+
+
+def bind(source: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry ``symbol`` of ``csrc/<source>.cu``, built on first use
+    (``ops/build.py``), with its argument types set."""
+    from zraytrace_tpu_torch.ops.build import load
+
+    lib = load(source)
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        lib.zr_error_string.argtypes = [ctypes.c_int]
+        lib.zr_error_string.restype = ctypes.c_char_p
+    return fn
+
+
+def launch(source: str, fn, *args) -> None:
+    """Call a C launch entry on the current stream and raise on its error
+    code (a refused launch never runs)."""
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        from zraytrace_tpu_torch.ops.build import load
+
+        msg = load(source).zr_error_string(err).decode()
+        raise RuntimeError(f"{source} launch failed: {msg}")
+
+
+def compare(name: str, got: torch.Tensor, want: torch.Tensor, rtol: float = 0.0,
+            atol: float = 0.0) -> float:
+    """Raise ``ProbeMismatch`` unless ``got`` equals ``want`` (integers, or
+    floats with both tolerances 0: bit for bit, infinities included) or lies
+    within ``atol + rtol * |want|``; returns the largest finite |diff|."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise ProbeMismatch(f"{name}: {got.dtype}{tuple(got.shape)} vs "
+                            f"{want.dtype}{tuple(want.shape)}")
+    if not got.is_floating_point():
+        bad = int((got != want).sum())
+        if bad:
+            raise ProbeMismatch(f"{name}: {bad} of {got.numel()} integers differ")
+        return 0.0
+    same_inf = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    finite = torch.isfinite(got) & torch.isfinite(want)
+    diff = torch.where(finite, (got - want).abs(), torch.zeros_like(got))
+    ok = same_inf | (finite & (diff <= atol + rtol * want.abs()))
+    bad = int((~ok).sum())
+    if bad:
+        raise ProbeMismatch(f"{name}: {bad} of {got.numel()} values differ beyond "
+                            f"rtol {rtol}, atol {atol} (max finite |diff| "
+                            f"{float(diff.max()):.3g})")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def format_row(row: dict, card: str | None = None) -> str:
+    """One line per variant, as the TPU tools printed them."""
+    where = f" on {card}" if card else f" ({row['device']})"
+    if row["ms"] is None:
+        return (f"[plain] {row['probe']} {row['variant']:<18} plain {row['plain_ms']:.4f} ms "
+                f"per launch (host clock){where}")
+    if row["plain_ms"] is None:  # a library call's row
+        return (f"[library] {row['probe']} {row['variant']:<18} {row['ms']:.5f} ms per call, "
+                f"{row['per']:.4f} {row['unit']}{where}")
+    return (f"[OK] {row['probe']} {row['variant']:<18} {row['ms']:.5f} ms per launch, "
+            f"{row['per']:.4f} {row['unit']}; plain {row['plain_ms']:.4f} ms; kernel vs plain "
+            f"max |diff| {row['max_abs_err']:.3g}{where}")
+
+
+def main_for(measure, variants, argv) -> int:
+    """Command-line body shared by the probes: ``[--cpu] [variant ...]``."""
+    device, names = device_from_argv(argv)
+    chosen = select(names, variants)
+    card = card_line() if device.type == "cuda" else None
+    if card:
+        print(f"gpu: {card}", flush=True)
+    for row in measure(device, chosen):
+        print(format_row(row, card), flush=True)
+    return 0
