@@ -32,13 +32,16 @@ import pytest
 import torch
 
 from zraytrace_tpu import rng as jrng
-from zraytrace_tpu_torch.probes import body_probe, common, flash3_probe, inkernel_texel_probe
-from zraytrace_tpu_torch.probes import rng_probe
+from zraytrace_tpu_torch.probes import body_probe, common, flash2_probe, flash3_probe
+from zraytrace_tpu_torch.probes import gather_probe3, inkernel_texel_probe, overlap_probe
+from zraytrace_tpu_torch.probes import pallas_probe, rng_probe
 
 torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
 PROBES = ("rng_probe", "inkernel_texel_probe", "body_probe", "flash3_probe")
+# every probe module; the last four are held to their tools in test_torch_probes2.py
+MODULES = PROBES + ("pallas_probe", "gather_probe3", "overlap_probe", "flash2_probe")
 
 
 @pytest.fixture(scope="module")
@@ -269,7 +272,7 @@ def test_flash3_mode_matches_tool(tools, monkeypatch, mode):
 # -- the modules ---------------------------------------------------------
 
 
-@pytest.mark.parametrize("module", ("common",) + PROBES)
+@pytest.mark.parametrize("module", ("common",) + MODULES)
 def test_probe_module_imports_no_jax(module):
     """The port's probes import torch and the port, never JAX or the JAX
     package (their imports, read from the source)."""
@@ -296,7 +299,7 @@ def test_probe_entry_needs_a_card_or_cpu(capsys):
     assert "[plain] rng_probe pcg4d_i32" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("module", PROBES)
+@pytest.mark.parametrize("module", MODULES)
 def test_probe_wrapper_refuses_other_devices(module):
     """A wrapper runs its plain version only on the CPU: a tensor on
     another device is refused, not computed on the host."""
@@ -311,7 +314,15 @@ def test_probe_wrapper_refuses_other_devices(module):
             z = torch.zeros(4, device=meta)
             zi = torch.zeros(4, dtype=torch.int32, device=meta)
             body_probe.body_chain("pass_", [z] * 12 + [zi] * 3, zi, None, tuple(range(10)))
-        else:
+        elif module == "flash3_probe":
             flash3_probe.flash_body("base", torch.zeros((17, 1, 128), device=meta),
                                     torch.zeros((2, 3), device=meta),
                                     torch.zeros((2, 3), device=meta))
+        elif module == "pallas_probe":
+            pallas_probe.pallas_kernel("while", torch.zeros((2, 4), device=meta), None, 3)
+        elif module == "gather_probe3":
+            gather_probe3.gather3("roll", torch.zeros((2, 128), device=meta))
+        elif module == "overlap_probe":
+            overlap_probe.overlap_kernel(torch.zeros((2, 4), device=meta))
+        else:
+            flash2_probe.mm(torch.zeros((4, 16), device=meta), torch.zeros((16, 128), device=meta))

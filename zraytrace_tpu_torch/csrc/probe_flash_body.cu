@@ -27,7 +27,7 @@
 //          times the threads per ray (the "more threads per ray" lever).
 //
 // Every mode tests every triangle with the tool's branch-free arithmetic
-// (no per-ray cull, no early exit), so the modes differ only in layout and
+// (zr::chunk_test in flash_chunk.cuh; no per-ray cull, no early exit), so the modes differ only in layout and
 // all return the same sums, bit for bit: each t is computed in the same
 // order, with -fmad=false, and a minimum is exact whatever the order.
 //
@@ -45,58 +45,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_chunk.cuh"
+
 namespace {
+
+using zr::chunk_test;
+using zr::make_ray;
+using zr::Ray;
 
 constexpr int LANE = 128;
 constexpr int N_ROWS = 17;
 constexpr int BLOCK = 128;  // base, hoist, both
 constexpr int BLOCK_R8 = 256;
 constexpr int LANES_PER_RAY = 4;
-constexpr float BIG = (float)3.4e38;
+constexpr float BIG = zr::FLASH_BIG;
 
 enum Mode { BASE, HOIST, BOTH, R8, N_MODES };
-// plane rows (tools/flash3_probe.py _chunk_math)
-enum {
-  E1X, E1Y, E1Z, E2X, E2Y, E2Z, FNX, FNY, FNZ, QAX, QAY, QAZ, RAX, RAY_, RAZ, ADF, VALID
-};
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, px, py, pz;
-};
-
-__device__ __forceinline__ Ray make_ray(const float* o, const float* d, int i) {
-  Ray r;
-  r.ox = o[3 * i];
-  r.oy = o[3 * i + 1];
-  r.oz = o[3 * i + 2];
-  r.dx = d[3 * i];
-  r.dy = d[3 * i + 1];
-  r.dz = d[3 * i + 2];
-  r.px = r.oy * r.dz - r.oz * r.dy;
-  r.py = r.oz * r.dx - r.ox * r.dz;
-  r.pz = r.ox * r.dy - r.oy * r.dx;
-  return r;
-}
-
-// one ray-triangle test of _chunk_math; p(k) reads plane row k of the
-// triangle. Returns t where the triangle is hit below t_best, else BIG.
-template <typename Plane>
-__device__ __forceinline__ float chunk_test(const Ray& r, Plane p, float t_best) {
-  const float fnx = p(FNX), fny = p(FNY), fnz = p(FNZ);
-  const float det = -(r.dx * fnx + r.dy * fny + r.dz * fnz);
-  const bool safe = fabsf(det) > (float)1e-12;
-  const float inv_det = 1.0f / (safe ? det : 1.0f);
-  const float u = (r.px * p(E2X) + r.py * p(E2Y) + r.pz * p(E2Z) -
-                   (r.dx * p(QAX) + r.dy * p(QAY) + r.dz * p(QAZ))) *
-                  inv_det;
-  const float v = -(r.px * p(E1X) + r.py * p(E1Y) + r.pz * p(E1Z) -
-                    (r.dx * p(RAX) + r.dy * p(RAY_) + r.dz * p(RAZ))) *
-                  inv_det;
-  const float t = (r.ox * fnx + r.oy * fny + r.oz * fnz - p(ADF)) * inv_det;
-  const bool hit = (det >= (float)1e-6) && (t > (float)1e-3) && (t < t_best) && (u >= 0.0f) &&
-                   (v >= 0.0f) && (u + v <= 1.0f) && (p(VALID) > 0.5f);
-  return hit ? t : BIG;
-}
 
 template <int MODE>
 __global__ void __launch_bounds__(BLOCK)

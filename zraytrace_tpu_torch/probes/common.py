@@ -2,7 +2,8 @@
 card line, CUDA-event timing and the kernel/plain comparison.
 
 Each probe module (``rng_probe``, ``inkernel_texel_probe``,
-``body_probe``, ``flash3_probe``) is a micro-benchmark with a
+``body_probe``, ``flash3_probe``, ``pallas_probe``, ``gather_probe3``,
+``overlap_probe``, ``flash2_probe``) is a micro-benchmark with a
 hand-written CUDA kernel (``csrc/probe_*.cu``) and a plain PyTorch
 version of the same function. Its ``measure(device, variants)`` returns
 one row per variant; on the card it holds the kernel against the plain
@@ -14,8 +15,11 @@ A row (``dict``): ``probe``, ``variant``, ``ms`` (the kernel's time for
 one launch of the TPU tool's shape, CUDA events), ``plain_ms`` (the plain
 version's time for the same work), ``per`` and ``unit`` (the kernel's
 time per lane, element, texel or triangle pair, as the tool printed it),
-``max_abs_err`` (kernel against plain) and ``device``. On the host
-``ms`` is None and ``plain_ms`` is host time.
+``max_abs_err`` (kernel against plain) and ``device``; optionally
+``library_ms`` (one PyTorch library call for the same work, timed only)
+and ``note``. On the host ``ms`` is None and ``plain_ms`` is host time. A
+row with neither time is a check that times nothing (its ``note`` says
+what was checked); a row with ``ms`` alone is a library call's.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import time
 import torch
 
 __all__ = ["ProbeMismatch", "device_from_argv", "select", "card_line", "time_ms", "time_graph",
-           "bind", "launch", "compare", "format_row", "main_for"]
+           "bind", "launch", "compare", "format_row", "main_for", "as_int32_bits"]
 
 
 class ProbeMismatch(RuntimeError):
@@ -136,6 +140,12 @@ def launch(source: str, fn, *args) -> None:
         raise RuntimeError(f"{source} launch failed: {msg}")
 
 
+def as_int32_bits(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> an int32 tensor of the same bits (the
+    plain versions' uint32 results; torch has no full uint32 arithmetic)."""
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
 def compare(name: str, got: torch.Tensor, want: torch.Tensor, rtol: float = 0.0,
             atol: float = 0.0) -> float:
     """Raise ``ProbeMismatch`` unless ``got`` equals ``want`` (integers, or
@@ -164,15 +174,23 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, rtol: float = 0.0,
 def format_row(row: dict, card: str | None = None) -> str:
     """One line per variant, as the TPU tools printed them."""
     where = f" on {card}" if card else f" ({row['device']})"
+    note = f"; {row['note']}" if row.get("note") else ""
+    if row["ms"] is None and row["plain_ms"] is None:  # a check that times nothing
+        return f"[OK] {row['probe']} {row['variant']:<18} {row['note']}{where}"
     if row["ms"] is None:
         return (f"[plain] {row['probe']} {row['variant']:<18} plain {row['plain_ms']:.4f} ms "
                 f"per launch (host clock){where}")
-    if row["plain_ms"] is None:  # a library call's row
+    if row["plain_ms"] is None and row["max_abs_err"] is None:  # a library call's row
         return (f"[library] {row['probe']} {row['variant']:<18} {row['ms']:.5f} ms per call, "
-                f"{row['per']:.4f} {row['unit']}{where}")
+                f"{row['per']:.4f} {row['unit']}{note}{where}")
+    if row.get("library_ms") is not None:
+        note = f"; library {row['library_ms']:.5f} ms{note}"
+    # a row without a plain time holds its kernel to what its note names
+    plain = ("" if row["plain_ms"] is None
+             else f"; plain {row['plain_ms']:.4f} ms; kernel vs plain")
     return (f"[OK] {row['probe']} {row['variant']:<18} {row['ms']:.5f} ms per launch, "
-            f"{row['per']:.4f} {row['unit']}; plain {row['plain_ms']:.4f} ms; kernel vs plain "
-            f"max |diff| {row['max_abs_err']:.3g}{where}")
+            f"{row['per']:.4f} {row['unit']}{plain} max |diff| {row['max_abs_err']:.3g}"
+            f"{note}{where}")
 
 
 def main_for(measure, variants, argv) -> int:

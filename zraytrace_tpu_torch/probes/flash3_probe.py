@@ -32,7 +32,7 @@ import torch
 from zraytrace_tpu_torch.probes import common
 
 __all__ = ["MODES", "VARIANTS", "SHAPES", "LAUNCHES", "R", "R_FULL", "LANE", "NCHUNK", "REPS",
-           "flash_body", "flash_body_plain", "make_inputs", "measure", "flash_ops"]
+           "flash_body", "flash_body_plain", "chunk_min", "make_inputs", "measure", "flash_ops"]
 
 R = 512
 R_FULL = 32768
@@ -53,9 +53,11 @@ BIG = 3.4e38
 _RAY_BLOCK = 4096  # rays per step of the plain version
 
 
-def _chunk_min(ray, planes):
+def chunk_min(ray, planes):
     """The closest valid t of each ray over every triangle (the tool's
-    _chunk_math, its ``t < t_best`` filter dropped: it removes no minimum)."""
+    _chunk_math, its ``t < t_best`` filter dropped: it removes no minimum).
+    ``ray``: six ``(n,)`` tensors ox .. dz; ``planes``: the first 17 rows
+    of ``(17+, ...)`` plane rows are read."""
     ox, oy, oz, dx, dy, dz = (v[:, None] for v in ray)
     pxv = oy * dz - oz * dy
     pyv = oz * dx - ox * dz
@@ -79,7 +81,7 @@ def flash_body_plain(planes: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
     ``(17, NCHUNK, 128)``, rays ``o``, ``d`` ``(R, 3)``."""
     acc = torch.zeros(o.shape[0], dtype=torch.float32, device=o.device)
     for _ in range(reps):
-        best = torch.cat([_chunk_min((o[s:s + _RAY_BLOCK].unbind(1)
+        best = torch.cat([chunk_min((o[s:s + _RAY_BLOCK].unbind(1)
                                       + d[s:s + _RAY_BLOCK].unbind(1)), planes)
                           for s in range(0, o.shape[0], _RAY_BLOCK)])
         acc = acc + best
