@@ -32,6 +32,8 @@ from zraytrace_tpu_torch.convert import tri_planes_from_numpy
 from zraytrace_tpu_torch.geometry.triangle import intersect_triangles
 from zraytrace_tpu_torch.ops import flash_intersect as fi
 
+import test_torch_winner_ties as ties
+
 torch.set_num_threads(1)
 
 EPS32 = float(np.finfo(np.float32).eps)
@@ -198,3 +200,34 @@ def test_dispatch_on_cpu_runs_the_plain_version():
     assert all(torch.equal(x, y) for x, y in zip(got, want))
     with pytest.raises(ValueError, match="cpu or cuda"):
         fi.flash_intersect_triangles(planes, _t(o).to("meta"), _t(d).to("meta"), T_MIN)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["orig-ids", "packed-ids"])
+@pytest.mark.parametrize("case", list(ties.CASES))
+def test_tie_cases_match_jax_kernel(case, packed):
+    """tests/test_torch_winner_ties.py's flash cases (exact copies in one
+    chunk or in two, a hit tied with t_init) through JAX's interpret-mode
+    kernel: t and hit equal the plain version's, and so does the id but in
+    one case. JAX's original-id mode keeps a best per triangle lane over
+    the chunks and takes the lowest lane on a tie (``_kernel_rl``'s
+    docstring, "sublane-first"), so of copies in two chunks it returns the
+    one in the lower lane; the port, and JAX's packed-id mode, return the
+    first in packed order."""
+    planes, o, d, t_init, _ = ties.flash_case(case, packed)
+    reps = jfi.R_RAYS // len(o)  # the JAX kernel takes whole blocks of rays
+    o, d, t_init = o.repeat(reps, 1), d.repeat(reps, 1), t_init.repeat(reps)
+    a, b, c = (x.numpy() for x in ties.tie_mesh(*ties.CASES[case]))
+    m = np.zeros(len(a), np.int32)
+    jp = jfi.pack_tri_planes(jnp.asarray(a), jnp.asarray(b), jnp.asarray(c),
+                             tri_mat=jnp.asarray(m) if packed else None, const_materials=packed)
+    want = [np.asarray(x) for x in jfi.flash_intersect_triangles(
+        jp, jnp.asarray(o.numpy()), jnp.asarray(d.numpy()), T_MIN,
+        t_init=jnp.asarray(t_init.numpy()))]
+    t, idx, hit, _ = (x.numpy() for x in fi.flash_intersect_plain(planes, o, d, T_MIN, t_init))
+    np.testing.assert_array_equal(t, want[0])
+    np.testing.assert_array_equal(hit, want[2])
+    first, second = ties.CASES[case]
+    lower_lane = second if second % fi.LANE < first % fi.LANE else first
+    assert hit.sum() == 2 * reps and (idx[hit] == first).all()
+    np.testing.assert_array_equal(want[1][hit], first if packed else lower_lane)
+    np.testing.assert_array_equal(idx[~hit], want[1][~hit])

@@ -81,18 +81,18 @@ def _compile(stem: str, compiler: str, flags, sources, inputs) -> dict:
 
 
 @functools.cache
-def build(name: str) -> dict:
-    """Compile ``csrc/<name>.cu`` with nvcc unless the same sources were
-    built already; ``log`` holds ``-Xptxas -v``'s resource report."""
-    main = CSRC / f"{name}.cu"
-    return _compile(name, find_nvcc(), NVCC_FLAGS, [main] + sorted(CSRC.glob("*.cuh")),
-                    [main])
+def build(name: str, csrc: Path = CSRC) -> dict:
+    """Compile ``<csrc>/<name>.cu`` with nvcc unless the same sources were
+    built already; ``log`` holds ``-Xptxas -v``'s resource report. ``csrc``
+    names another checkout's sources, for a measurement beside this one."""
+    main = csrc / f"{name}.cu"
+    return _compile(name, find_nvcc(), NVCC_FLAGS, [main] + sorted(csrc.glob("*.cuh")), [main])
 
 
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu`` as a ctypes library."""
-    return ctypes.CDLL(str(build(name)["path"]))
+def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
+    """Build (if needed) and load ``<csrc>/<name>.cu`` as a ctypes library."""
+    return ctypes.CDLL(str(build(name, csrc)["path"]))
 
 
 @functools.cache

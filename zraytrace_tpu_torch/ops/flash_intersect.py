@@ -5,8 +5,10 @@ Replaces the TPU kernel ``_kernel_rl`` (``zraytrace_tpu/ops/
 flash_intersect.py:589``, reached from ``flash_intersect_triangles``
 ``:1055``) and, with the same contract, the older ``_kernel`` /
 ``_winner_scan`` (``:401``). The CUDA source, with the design note, is
-``csrc/flash_intersect.cu``; its per-ray device function
-``csrc/tri_winner.cuh`` is shared with the bounce kernel's mesh mode.
+``csrc/flash_intersect.cu``: one ray per group of lanes spread over a
+chunk's triangles (``csrc/tri_winner_warp.cuh``, shared with the margin
+kernel). Its result is that of the per-ray sequential scan
+``csrc/tri_winner.cuh``, which the bounce kernel's mesh mode runs in place.
 
 Triangles are sorted into BVH-leaf order (``geometry/bvh.py``) and packed
 as 18 component planes of ``(C, 128)`` chunks with one AABB per chunk.
@@ -16,7 +18,7 @@ running winner, seeded with ``t_init`` (e.g. the closest sphere):
 triangles past the seed lose anyway, and the strict ``<`` keeps exact
 ties on the seed. The TPU kernel's rays-on-lanes layout, per-block SMEM
 work lists, ray sorting, group bounds, coarse phase and near exit are its
-machinery, not its contract; a GPU thread culls per ray instead.
+machinery, not its contract; on the GPU each ray culls for itself.
 
 ``flash_intersect_triangles`` launches the kernel for CUDA tensors and
 runs ``flash_intersect_plain`` (the same function in plain PyTorch) for
@@ -41,6 +43,7 @@ from zraytrace_tpu_torch.geometry.triangle import DET_EPS
 
 __all__ = ["TriPlanes", "pack_tri_planes", "root_box", "ray_chunk_reach",
            "flash_intersect_plain", "flash_intersect_triangles", "LAUNCHES", "WORK_FIELDS",
+           "FLASH_WORK_FIELDS",
            "library", "LANE", "N_COMP", "dilated_bounds", "flash_margin_select_plain",
            "flash_margin_select", "MARGIN_LAUNCHES", "MARGIN_WORK_FIELDS", "margins_library"]
 
@@ -57,6 +60,12 @@ N_COMP = 18
 # order: chunk slab tests, chunk visits (128 triangle tests each), and the
 # triangle tests passing the det, t and u stages (csrc/tri_winner.cuh).
 WORK_FIELDS = ("slab", "visits", "det", "t", "u")
+# The work counts ``flash_intersect_triangles(..., work=)`` receives: those
+# of the sequential scan (``WORK_FIELDS``), then the triangle tests passing
+# t and u as the flash kernel's lanes made them, each against its own
+# running best rather than the winner shrinking mid-chunk
+# (csrc/flash_intersect.cu).
+FLASH_WORK_FIELDS = WORK_FIELDS + ("t_warp", "u_warp")
 # The work counts ``flash_margin_select(..., work=)`` receives: chunk slab
 # tests, chunk visits, and the triangle tests passing det and t > t_min
 # (csrc/flash_margins.cu).
@@ -268,8 +277,8 @@ def flash_intersect_triangles(planes: TriPlanes, o, d, t_min, t_init=None, work=
     report id 0. ``t_init`` ``(N,)`` seeds the running winner: ``t``
     equals ``t_init`` where no triangle beat it, and ``hit`` is True only
     where a triangle won. Any ``N``. ``work``, an int64 tensor of
-    ``len(WORK_FIELDS)`` on the card, has the work done added to it by a
-    counting build of the kernel (slower; for pricing a bound). The plain
+    ``len(FLASH_WORK_FIELDS)`` on the card, has the work done added to it by
+    a counting build of the kernel (slower; for pricing a bound). The plain
     version counts nothing.
     """
     global LAUNCHES
@@ -290,8 +299,8 @@ def flash_intersect_triangles(planes: TriPlanes, o, d, t_min, t_init=None, work=
             raise ValueError(f"t_init must be ({n},) on {dev}")
         ti = t_init.to(torch.float32).contiguous()
     if work is not None and (work.device != dev or work.dtype != torch.int64
-                             or work.shape != (len(WORK_FIELDS),)):
-        raise ValueError(f"work must be an int64 ({len(WORK_FIELDS)},) tensor on {dev}")
+                             or work.shape != (len(FLASH_WORK_FIELDS),)):
+        raise ValueError(f"work must be an int64 ({len(FLASH_WORK_FIELDS)},) tensor on {dev}")
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     idx = torch.empty((n,), dtype=torch.int32, device=dev)
     hit = torch.empty((n,), dtype=torch.bool, device=dev)
@@ -315,7 +324,8 @@ def dilated_bounds(bounds):
     """Chunk boxes ``(C, 8)`` widened on every side by half their extent
     plus 1e-3 (``flash_margin_select``, ``zraytrace_tpu/ops/
     flash_intersect.py:1007-1011``): a near-missing ray can pass outside a
-    chunk's box while its barycentric margin is still small."""
+    chunk's box while its barycentric margin is still small. The margin
+    kernel widens the boxes itself with the same arithmetic."""
     lo, hi = bounds[:, 0:3], bounds[:, 3:6]
     pad = 0.5 * (hi - lo) + 1e-3
     return torch.cat([lo - pad, hi + pad, bounds[:, 6:8]], dim=1).contiguous()
@@ -457,13 +467,12 @@ def flash_margin_select(planes: TriPlanes, o, d, t_cap, t_min, work=None):
         raise ValueError(f"work must be an int64 ({len(MARGIN_WORK_FIELDS)},) tensor on {dev}")
     o, d = o.contiguous(), d.contiguous()
     tc = t_cap.to(torch.float32).contiguous()
-    bd = dilated_bounds(planes.bounds)
     ids = torch.empty((3, n), dtype=torch.int32, device=dev)
     lib = margins_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.zr_margins_launch(
-            planes.planes.data_ptr(), bd.data_ptr(), planes.n_chunks, o.data_ptr(),
+            planes.planes.data_ptr(), planes.bounds.data_ptr(), planes.n_chunks, o.data_ptr(),
             d.data_ptr(), tc.data_ptr(), float(t_min), n, ids[0].data_ptr(), ids[1].data_ptr(),
             ids[2].data_ptr(), None if work is None else work.data_ptr(), stream)
     if err != 0:

@@ -114,6 +114,30 @@ def time_graph(fn, device: torch.device, launches: int = 20) -> float:
     return start.elapsed_time(end) / launches
 
 
+def time_graph_calls(fns, device: torch.device, replays: int = 20) -> float:
+    """Milliseconds per call of the functions ``fns``, each launching a few
+    kernels: one CUDA graph of all of them, captured after a warm-up run,
+    replayed ``replays`` times between CUDA events (device time, with no
+    host work between the launches)."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / (replays * len(fns))
+
+
 def bind(source: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """The C entry ``symbol`` of ``csrc/<source>.cu``, built on first use
     (``ops/build.py``), with its argument types set."""
