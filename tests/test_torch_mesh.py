@@ -324,7 +324,7 @@ def test_cuda_mesh_mode_refuses_a_textured_mesh(teapot_run):
     planes = flash_pack_cached(scene)
     assert planes.attrs is None
     for tf in (planes, None):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 8"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 5"):
             bk.check_mesh(scene, tf)
     teapot = teapot_run[0]
     bk.check_mesh(teapot, flash_pack_cached(teapot))  # const materials pass

@@ -5,8 +5,8 @@ the same scenes with the same stateless PCG4D streams and event counters.
 Plain functions on tensors, an explicit ``device`` argument everywhere
 (the card by default), and no global RNG state. On a CUDA device the
 bounce loop runs in a hand-written Hopper kernel (``csrc/bounce_kernel.cu``,
-whose mesh mode runs the flash triangle winner of
-``csrc/flash_intersect.cu`` in place); on the CPU it runs the plain
+whose mesh mode walks the mesh's BVH per ray in place, ``csrc/tri_bvh.cuh``,
+to the flash triangle winner's result); on the CPU it runs the plain
 PyTorch wavefront that the kernel is tested against, only when the caller
 asks for the CPU.
 

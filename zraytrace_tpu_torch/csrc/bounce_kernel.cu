@@ -30,15 +30,17 @@
 // mesh, resolves all blocked lanes with one flash call per launch and
 // replays them, because Mosaic cannot intersect triangles usefully inside
 // the megakernel. Here each segment runs the sphere winner; if the ray
-// reaches the mesh root box within (t_min, t_sphere], the flash winner's
-// device function (tri_winner.cuh) runs in place, seeded with t_sphere;
-// the merge is a strict <, so spheres keep exact ties, and a triangle hit
-// is shaded with its attrs row (unit face normal, material id). The
-// triangle tests are per-ray FP32 work over the chunks the ray reaches,
-// and rays that reach the mesh diverge from rays that do not: both bound
-// mesh scenes. The planes stay in global memory (the teapot's 455 KB sit in
-// L2). The root-box test uses the chunk slab formula on a box containing
-// every chunk box, so it never skips a chunk the ray would reach.
+// reaches the mesh root box within (t_min, t_sphere], the triangle winner
+// runs in place, seeded with t_sphere: a stackless walk of the mesh's BVH
+// (tri_bvh.cuh, leaves of 4), with the flash winner's contract and
+// arithmetic; the merge is a strict <, so spheres keep exact ties, and a
+// triangle hit is shaded with its attrs row (unit face normal, material
+// id). The walk is a chain of dependent node loads per ray, and walks
+// differ in length between the lanes of a warp, as do rays that reach the
+// mesh and rays that do not: these bound mesh scenes. The node and
+// triangle tables stay in global memory (the teapot's 121 KB and 405 KB
+// sit in L2). The root box is the union of the chunk boxes, so it
+// contains every triangle.
 //
 // Numerics follow the plain PyTorch version operation by operation:
 // explicit left-to-right component sums, division where the reference
@@ -48,7 +50,7 @@
 // Work counters (the template parameter COUNT, for a bound on the kernel's
 // time; the instantiations without it are the ones render() runs): the
 // sphere tests whose discriminant is positive, the segments that reach the
-// mesh root box, the triangle hits shaded, and tri_winner's own counts.
+// mesh root box, the triangle hits shaded, and the BVH walk's own counts.
 //
 // Counters: rays, reflections, background hits, recursion-depth hits and
 // samples are summed per thread, reduced per warp and added with one
@@ -61,7 +63,7 @@
 #include <stdint.h>
 
 #include "bounce_common.cuh"
-#include "tri_winner.cuh"
+#include "tri_bvh.cuh"
 
 namespace {
 
@@ -123,17 +125,18 @@ __device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
   return v;
 }
 
-// work array columns after tri_winner's (ops/bounce_kernel.py WORK_FIELDS)
-enum { W_DISC = zr::W_TRI_N, W_ROOT, W_TRI_HITS, W_N };
+// work array columns after the walk's (ops/bounce_kernel.py WORK_FIELDS)
+enum { W_DISC = zr::B_N, W_ROOT, W_TRI_HITS, W_N };
 
-// The mesh: flash planes (18, C, 128), chunk boxes (C, 8), attrs
-// (C*128, 4) and the root box [lo3, hi3] (mesh mode only).
+// The mesh (mesh mode only): the BVH walk's node table (M, 8) and triangle
+// rows (T, 16) (tri_bvh.cuh), attrs by packed id (C*128, 4) and the root
+// box [lo3, hi3].
 struct Mesh {
-  const float* planes;
-  const float* bounds;
+  const float4* nodes;
+  const float4* rows;
   const float* attrs;
   const float* box;
-  int n_chunks;
+  int n_nodes;
 };
 
 template <bool MESH, bool COUNT>
@@ -168,7 +171,7 @@ bounce_kernel(const float* __restrict__ sph_g, int n_sph,
 
   uint32_t n_rays = 0, n_refl = 0, n_bg = 0, n_rec = 0, n_samp = 0;
   uint32_t steps = 0;
-  zr::TwCount cnt{};
+  zr::TbCount cnt{};
   unsigned long long n_disc = 0, n_root = 0, n_tri_hits = 0;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
 
@@ -204,7 +207,7 @@ bounce_kernel(const float* __restrict__ sph_g, int n_sph,
           float t_best;
           const int win = zr::sphere_winner<COUNT>(sph, n_sph, o, d, T_MIN, t_best, n_disc);
 
-          // mesh mode: the flash winner below the sphere winner's t
+          // mesh mode: the BVH walk's winner below the sphere winner's t
           bool tri = false;
           V3 tri_n{0.0f, 0.0f, 0.0f};
           int tri_mid = 0;
@@ -212,9 +215,8 @@ bounce_kernel(const float* __restrict__ sph_g, int n_sph,
             const zr::TwRay ray = zr::tw_ray(o.x, o.y, o.z, d.x, d.y, d.z);
             if (zr::tw_reach(box, box + 3, ray, T_MIN, t_best)) {
               if (COUNT) ++n_root;
-              const zr::TwHit th = zr::tri_winner<COUNT>(mesh.planes, mesh.bounds,
-                                                         mesh.n_chunks, ray, T_MIN, t_best,
-                                                         true, cnt);
+              const zr::TbHit th = zr::tri_bvh_winner<COUNT>(mesh.nodes, mesh.n_nodes,
+                                                             mesh.rows, ray, T_MIN, t_best, cnt);
               if (th.t < t_best) {
                 if (COUNT) ++n_tri_hits;
                 t_best = th.t;
@@ -348,7 +350,7 @@ bounce_kernel(const float* __restrict__ sph_g, int n_sph,
   if (leader && most) atomicMax(&counters[C_ITERS], most);
   if (COUNT) {
 #pragma unroll
-    for (int i = 0; i < zr::W_TRI_N; ++i) zr::tw_add(&work[i], cnt.n[i]);
+    for (int i = 0; i < zr::B_N; ++i) zr::tw_add(&work[i], cnt.n[i]);
     zr::tw_add(&work[W_DISC], n_disc);
     zr::tw_add(&work[W_ROOT], n_root);
     zr::tw_add(&work[W_TRI_HITS], n_tri_hits);
@@ -376,25 +378,28 @@ void launch(int grid, cudaStream_t stream, const float* sph, int n_sph, const fl
 
 }  // namespace
 
-// n_chunks == 0: sphere mode (planes, bounds, attrs and box unused);
-// n_chunks > 0: mesh mode, where n_sph may be 0. work: null, or int64
-// [W_N] that receives the work done (the slower counting kernel).
+// n_nodes == 0: sphere mode (nodes, rows, attrs and box unused);
+// n_nodes > 0: mesh mode, where n_sph may be 0; nodes and rows 16-byte
+// aligned. work: null, or int64 [W_N] that receives the work done (the
+// slower counting kernel).
 extern "C" int zr_bounce_launch(const float* sph, int n_sph, const float* mats,
                                 int n_mats, const float* cam, const float* atlas,
-                                int atlas_w, const float* planes, const float* bounds,
-                                const float* attrs, const float* box, int n_chunks,
+                                int atlas_w, const float* nodes, const float* rows,
+                                const float* attrs, const float* box, int n_nodes,
                                 unsigned long long* work, const int* base, int n_lanes, int width,
                                 int height, int sample_start, int spp, int max_depth,
                                 unsigned int seed, int pixel_stride, int n_pixels,
                                 int n_slots, float* slot_sums,
                                 unsigned long long* counters, void* stream) {
-  const bool mesh_mode = n_chunks > 0;
+  const bool mesh_mode = n_nodes > 0;
   if (n_sph < (mesh_mode ? 0 : 1) || n_sph > MAX_SPHERES || n_mats < 1 ||
-      n_mats > MAX_MATS || n_chunks < 0)
+      n_mats > MAX_MATS || n_nodes < 0 ||
+      (mesh_mode && (((uintptr_t)nodes | (uintptr_t)rows) & 15)))
     return (int)cudaErrorInvalidValue;
   if (n_lanes <= 0) return 0;
   const int grid = (n_lanes + BLOCK - 1) / BLOCK;
-  const Mesh mesh{planes, bounds, attrs, box, n_chunks};
+  const Mesh mesh{reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(rows),
+                  attrs, box, n_nodes};
   (mesh_mode ? launch<true> : launch<false>)(
       grid, (cudaStream_t)stream, sph, n_sph, mats, n_mats, cam, atlas, atlas_w, mesh, base,
       n_lanes, width, height, sample_start, spp, max_depth, seed, pixel_stride, n_pixels,

@@ -5,9 +5,8 @@
 // with the same contract, the older rays-on-sublanes _kernel / _winner_scan
 // (:401). Contract: zraytrace_tpu_torch/ops/flash_intersect.py
 // flash_intersect_triangles; per ray t, id, hit and uv, the running winner
-// seeded with t_init. The result is that of the sequential scan of
-// tri_winner.cuh (the bounce kernel's mesh mode runs that scan in place),
-// bit for bit.
+// seeded with t_init. The result is that of the sequential scan in packed
+// order (flash_intersect_plain), bit for bit.
 //
 // Ties: the first triangle in packed order wins, as in the TPU kernel's
 // packed-id mode. Its original-id mode keeps a best per triangle lane over
@@ -21,7 +20,7 @@
 // winner when its turn comes (near <= t_best, tw_reach's condition at that
 // point of the sequential walk, so the same chunks are visited). In a
 // visited chunk lane l tests triangles l, l + TW_G, ... in the arithmetic
-// order of tri_winner, in two stages whose plane reads are issued for all
+// order of tri_winner.cuh, in two stages whose plane reads are issued for all
 // its rows at once (det and t; then u and v of the rows with t strictly
 // below the chunk's entry winner), and keeps its first least t strictly
 // below its own running best; then a shuffle reduction on (t, packed

@@ -13,7 +13,7 @@
 // this card each stands for the question it asks here:
 //   base   one thread per ray, every triangle's planes read from global
 //          memory (L1/L2) per test, the ray terms (o x d) recomputed each
-//          rep: the layout csrc/tri_winner.cuh runs today;
+//          rep: the layout of a per-ray sequential chunk scan;
 //   hoist  base with the ray terms computed once per thread before the
 //          reps (the TPU's pre-broadcast). nvcc hoists them out of base's
 //          loop by itself, so the two should compile alike: compare their

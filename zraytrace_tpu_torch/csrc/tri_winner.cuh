@@ -1,6 +1,8 @@
-// The flash closest-triangle winner for one ray: the device function shared
-// by the flash kernel (flash_intersect.cu) and the bounce kernel's mesh
-// mode (bounce_kernel.cu).
+// The flash winner's per-ray pieces: the plane layout, the ray set-up, the
+// chunk slab test and the work counters, shared by the warp-wide chunk
+// walk of the flash and margin kernels (tri_winner_warp.cuh,
+// flash_intersect.cu, flash_margins.cu) and the bounce kernel's BVH walk
+// (tri_bvh.cuh).
 //
 // Replaces the per-ray arithmetic of the TPU kernel _kernel_rl
 // (zraytrace_tpu/ops/flash_intersect.py:589). Triangles are packed by
@@ -8,23 +10,17 @@
 // component planes (18, C, 128) f32 in BVH-leaf order, one AABB per
 // 128-triangle chunk in bounds (C, 8).
 //
-// One thread walks the chunks in packed order. A chunk is skipped unless
-// the ray's own slab test reaches its box within (t_min, t_best], t_best
-// being the running winner seeded with t_init: a per-ray cull in place of
-// the TPU kernel's per-block work lists. A reached chunk's 128 triangles
-// are tested in the JAX arithmetic order (det = -(d.fn); u and v from
-// o x d, e2, e2 x a, e1, e1 x a; t = (o.fn - a.fn) / det), one-sided
-// (det >= 1e-6), then t > t_min, u >= 0, v >= 0, u + v <= 1 and a strict
-// t < t_best, so a seed keeps exact ties. Ties between distinct triangles
-// at bit-equal t go to the first in packed order; _kernel_rl picks the
-// lowest sublane instead (flash_intersect.py:593-598). Exact ties of
-// distinct triangles do not occur in the reference scenes.
-//
-// The early exits (det, then t, then u) skip work only: every test of the
-// plain version is still applied, so the winner is the same. The counting
-// instantiation (COUNT) also tallies the work each stage did, from which a
-// bound on the kernels' time is priced: chunk slab tests, chunk visits and
-// the triangle tests that pass det, t and u.
+// The contract every winner keeps is that of the sequential scan in packed
+// order (flash_intersect_plain): a chunk is skipped unless the ray's own
+// slab test reaches its box within (t_min, t_best], t_best being the
+// running winner seeded with t_init; a reached chunk's 128 triangles are
+// tested in the JAX arithmetic order (det = -(d.fn); u and v from o x d,
+// e2, e2 x a, e1, e1 x a; t = (o.fn - a.fn) / det), one-sided (det >=
+// 1e-6), then t > t_min, u >= 0, v >= 0, u + v <= 1 and a strict t <
+// t_best, so a seed keeps exact ties. Ties between distinct triangles at
+// bit-equal t go to the first in packed order; _kernel_rl picks the lowest
+// sublane instead (flash_intersect.py:593-598). Exact ties of distinct
+// triangles do not occur in the reference scenes.
 
 #pragma once
 
@@ -85,66 +81,11 @@ struct TwHit {
 // (ops/flash_intersect.py WORK_FIELDS).
 enum { W_SLAB, W_VISITS, W_DET, W_T, W_U, W_TRI_N };
 
-struct TwCount {
-  unsigned long long n[W_TRI_N];
-};
-
 // Sum v over the warp and add it to *dst once. Every lane of the warp
 // must call it.
 __device__ __forceinline__ void tw_add(unsigned long long* dst, unsigned long long v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   if ((threadIdx.x & 31) == 0 && v) atomicAdd(dst, v);
-}
-
-// Closest triangle strictly below t_init. packed_id: report the packed id
-// (const-material attrs mode) instead of the original one. With COUNT,
-// cnt receives the work done.
-template <bool COUNT>
-__device__ __forceinline__ TwHit tri_winner(const float* __restrict__ planes,
-                                            const float* __restrict__ bounds, int n_chunks,
-                                            const TwRay& r, float t_min, float t_init,
-                                            bool packed_id, TwCount& cnt) {
-  TwHit best{t_init, 0, 0.0f, 0.0f};
-  const size_t stride = (size_t)n_chunks * TW_LANE;  // one plane
-  for (int c = 0; c < n_chunks; ++c) {
-    const float* box = bounds + (size_t)c * 8;
-    if (COUNT) ++cnt.n[W_SLAB];
-    if (!tw_reach(box, box + 3, r, t_min, best.t)) continue;
-    if (COUNT) ++cnt.n[W_VISITS];
-    const float* base = planes + (size_t)c * TW_LANE;
-    for (int j = 0; j < TW_LANE; ++j) {
-      const float* q = base + j;
-      const float fnx = __ldg(q + P_FNX * stride);
-      const float fny = __ldg(q + P_FNY * stride);
-      const float fnz = __ldg(q + P_FNZ * stride);
-      const float det = -(r.dx * fnx + r.dy * fny + r.dz * fnz);
-      if (!(det >= TW_DET_EPS)) continue;
-      if (COUNT) ++cnt.n[W_DET];
-      const float inv_det = 1.0f / det;  // |det| > 1e-12 here
-      const float t = (r.ox * fnx + r.oy * fny + r.oz * fnz - __ldg(q + P_ADF * stride)) * inv_det;
-      if (!(t > t_min && t < best.t)) continue;
-      if (COUNT) ++cnt.n[W_T];
-      const float u = (r.px * __ldg(q + P_E2X * stride) + r.py * __ldg(q + P_E2Y * stride) +
-                       r.pz * __ldg(q + P_E2Z * stride) -
-                       (r.dx * __ldg(q + P_QAX * stride) + r.dy * __ldg(q + P_QAY * stride) +
-                        r.dz * __ldg(q + P_QAZ * stride))) *
-                      inv_det;
-      if (!(u >= 0.0f)) continue;
-      if (COUNT) ++cnt.n[W_U];
-      const float v = -(r.px * __ldg(q + P_E1X * stride) + r.py * __ldg(q + P_E1Y * stride) +
-                        r.pz * __ldg(q + P_E1Z * stride) -
-                        (r.dx * __ldg(q + P_RAX * stride) + r.dy * __ldg(q + P_RAY * stride) +
-                         r.dz * __ldg(q + P_RAZ * stride))) *
-                      inv_det;
-      if (v >= 0.0f && u + v <= 1.0f) {
-        best.t = t;
-        best.id = packed_id ? c * TW_LANE + j : (int)__ldg(q + P_ORIG * stride);
-        best.u = u;
-        best.v = v;
-      }
-    }
-  }
-  return best;
 }
 
 }  // namespace zr

@@ -17,9 +17,10 @@
 //    position).
 //
 // Why the reduction gives the sequential scan's result. The sequential scan
-// (tri_winner.cuh, and the plain PyTorch versions) takes a candidate when
-// its value strictly beats the running best, so it returns the first
-// candidate, in packed order, of the best value. Each lane scans its own
+// (the plain PyTorch versions, flash_intersect_plain and
+// flash_margin_select_plain) takes a candidate when its value strictly
+// beats the running best, so it returns the first candidate, in packed
+// order, of the best value. Each lane scans its own
 // triangles in increasing packed position (chunks in packed order, rows in
 // order) with the same strict compare, so it holds the first of its own
 // best. A float compare is exact, and the reduction orders (value, position)
@@ -110,7 +111,7 @@ __device__ __forceinline__ void tw_group_walk(const TwGroup& g, const float* __r
 // thread per ray had, left the walk waiting on memory.
 //
 // Stage 1: det and t of every row (normal and a.fn; arithmetic of
-// tri_winner: det = -(d.fn), t = (o.fn - a.fn) / det). inv is 1 / det;
+// tri_winner.cuh: det = -(d.fn), t = (o.fn - a.fn) / det). inv is 1 / det;
 // rows with det < 1e-6 are dropped by the caller, their t unused.
 __device__ __forceinline__ void tw_rows_t(const float* __restrict__ base, size_t stride,
                                           const TwRay& r, float (&det)[TW_ROWS],
@@ -133,7 +134,7 @@ __device__ __forceinline__ void tw_rows_t(const float* __restrict__ base, size_t
 }
 
 // Stage 2: u and v of the rows where use[row] (from o x d, e2, e2 x a, e1
-// and e1 x a, in tri_winner's order).
+// and e1 x a, in tri_winner.cuh's order).
 __device__ __forceinline__ void tw_rows_uv(const float* __restrict__ base, size_t stride,
                                            const TwRay& r, const bool (&use)[TW_ROWS],
                                            const float (&inv)[TW_ROWS], float (&u)[TW_ROWS],

@@ -2,12 +2,18 @@
 
 Counterpart of ``zraytrace_tpu/geometry/bvh.py`` ``build_tri_bvh`` and
 ``TriBVH``: a binned-SAH build (16 bins, leaves of 4) computed by the
-port's C++ builder (``native/bvh_builder.cpp``). The mesh path uses only
-its ``prim_order``, to sort triangles into spatially tight 128-triangle
-chunks for the flash winner (``ops/flash_intersect.py``), so that is what
-``TriBVH`` holds, with the node count. The node arrays feed only the JAX
-package's traversal ``bvh_closest_triangle``, which is not on the render
-path and is not ported (ROADMAP.md Queue 1, item 8).
+port's C++ builder (``native/bvh_builder.cpp``), flattened in preorder
+with skip links. Its ``prim_order`` sorts the triangles into the packed
+order of the flash planes (``ops/flash_intersect.py``); its nodes are the
+tree the bounce kernel's mesh mode walks (``ops/mesh_bvh.py``, the port
+of the JAX traversal ``bvh_closest_triangle``).
+
+Layout: node 0 is the root; an internal node's left child is the next
+node and its right child follows the left subtree; ``skip`` is where a
+walk goes when the node's box is missed (an internal node's subtree end,
+a leaf's next node, ``M`` when done). A leaf holds ``prim_count > 0``
+triangles from ``prim_start`` in ``prim_order``, so the leaves' ranges
+are contiguous and ascending in preorder.
 """
 
 from __future__ import annotations
@@ -21,20 +27,27 @@ LEAF_SIZE = 4
 
 
 class TriBVH(NamedTuple):
-    """What the mesh path takes from a BVH over ``T`` triangles."""
+    """Flattened BVH over ``T`` triangles, ``M`` nodes (host tensors)."""
 
+    node_min: torch.Tensor  # (M, 3) f32
+    node_max: torch.Tensor  # (M, 3) f32
+    prim_start: torch.Tensor  # (M,) int32, a leaf's first position in prim_order
+    prim_count: torch.Tensor  # (M,) int32, 0 for internal nodes
+    skip: torch.Tensor  # (M,) int32 escape index (M = done)
     prim_order: torch.Tensor  # (T,) int32 permutation of triangle ids, leaf order
-    n_nodes: int
+
+    @property
+    def n_nodes(self) -> int:
+        return self.node_min.shape[0]
 
 
 def build_tri_bvh(a, b, c, leaf_size: int = LEAF_SIZE) -> TriBVH:
     """Build over triangle vertex arrays ``(T, 3)`` (tensors or arrays)."""
     from zraytrace_tpu_torch.native.api import build_bvh_native
 
-    a, b, c = (np.asarray(torch.as_tensor(x).cpu(), np.float32) for x in (a, b, c))
+    a, b, c = (np.asarray(torch.as_tensor(x).detach().cpu(), np.float32) for x in (a, b, c))
     if a.shape[0] == 0:
         raise ValueError("cannot build a BVH over zero triangles")
     lo = np.minimum(np.minimum(a, b), c)
     hi = np.maximum(np.maximum(a, b), c)
-    order, n_nodes = build_bvh_native(lo, hi, leaf_size)
-    return TriBVH(torch.from_numpy(order), n_nodes)
+    return TriBVH(*(torch.from_numpy(x) for x in build_bvh_native(lo, hi, leaf_size)))

@@ -40,10 +40,10 @@ def _iptr(a):
 
 
 def build_bvh_native(lo: np.ndarray, hi: np.ndarray, leaf_size: int):
-    """Binned-SAH build over primitive bounds ``(n, 3)``. Returns
-    ``(prim_order (n,) int32, number of nodes)``; the node arrays are
-    written to scratch buffers and dropped (nothing in the port traverses
-    the tree)."""
+    """Binned-SAH build over primitive bounds ``(n, 3)``. Returns the
+    preorder skip-link layout ``(node_min (M, 3) f32, node_max (M, 3) f32,
+    prim_start (M,) int32, prim_count (M,) int32, skip (M,) int32,
+    prim_order (n,) int32)`` of ``geometry/bvh.py`` ``TriBVH``."""
     n = lo.shape[0]
     lo = np.ascontiguousarray(lo, np.float32)
     hi = np.ascontiguousarray(hi, np.float32)
@@ -59,7 +59,8 @@ def build_bvh_native(lo: np.ndarray, hi: np.ndarray, leaf_size: int):
                              _iptr(skip), _iptr(order), max_nodes)
     if m < 0:
         raise RuntimeError(f"BVH build needs more than {max_nodes} nodes")
-    return order, int(m)
+    return (node_min[:m].copy(), node_max[:m].copy(), prim_start[:m].copy(),
+            prim_count[:m].copy(), skip[:m].copy(), order)
 
 
 def parse_obj_native(path):

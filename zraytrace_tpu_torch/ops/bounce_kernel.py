@@ -4,10 +4,11 @@ Replaces the TPU bounce megakernel (``zraytrace_tpu/ops/
 bounce_kernel3.py:222``, ``make_bounce_kernel3``, driven by
 ``wavefront_trace_pallas3``) in sphere mode and in mesh mode. The source,
 with the design note (one thread per lane, texels read directly from
-global memory, in mesh mode the flash winner run in place for segments
-that reach the mesh, bounded by per-ray FP32/SFU work and divergence
-rather than bytes, no wgmma or TMA since there is no matrix work), is
-``csrc/bounce_kernel.cu``.
+global memory, in mesh mode a per-ray walk of the mesh's BVH run in place
+for segments that reach the mesh, bounded by per-ray FP32/SFU work,
+dependent loads and divergence rather than bytes, no wgmma or TMA since
+there is no matrix work), is ``csrc/bounce_kernel.cu``; the walk is
+``csrc/tri_bvh.cuh``, its tables and plain twin ``ops/mesh_bvh.py``.
 
 ``bounce_trace`` has the contract of the plain wavefront
 ``render.wavefront_trace``, which this module re-exports as
@@ -22,14 +23,15 @@ import ctypes
 import torch
 
 from zraytrace_tpu_torch.camera import Camera
-from zraytrace_tpu_torch.ops.flash_intersect import WORK_FIELDS as TRI_WORK_FIELDS
 from zraytrace_tpu_torch.ops.flash_intersect import TriPlanes, check_planes
+from zraytrace_tpu_torch.ops.mesh_bvh import WORK_FIELDS as BVH_WORK_FIELDS
+from zraytrace_tpu_torch.ops.mesh_bvh import check_tables
 from zraytrace_tpu_torch.render import MAX_SPHERES, N_COUNTERS
 from zraytrace_tpu_torch.render import wavefront_trace as wavefront_trace_reference
 from zraytrace_tpu_torch.scene import Scene
 
 __all__ = ["bounce_trace", "wavefront_trace_reference", "LAUNCHES", "MESH_LAUNCHES",
-           "WORK_FIELDS", "check_mesh", "library", "scene_tables"]
+           "WORK_FIELDS", "check_mesh", "library", "bind", "scene_tables"]
 
 # Kernel launches made by ``bounce_trace`` in this process, and those of
 # them in mesh mode.
@@ -41,10 +43,10 @@ MESH_LAUNCHES = 0
 MAX_MATS = 32
 
 # The work counts ``bounce_trace(..., work=)`` receives, in order: the
-# flash winner's (chunk slab tests, chunk visits, triangle tests passing
-# det, t and u), then sphere tests with a positive discriminant, segments
-# reaching the mesh root box and triangle hits.
-WORK_FIELDS = TRI_WORK_FIELDS + ("disc", "root", "tri_hits")
+# BVH walk's (node slab tests, leaves entered, triangle tests, and those
+# passing det, t and u), then sphere tests with a positive discriminant,
+# segments reaching the mesh root box and triangle hits.
+WORK_FIELDS = BVH_WORK_FIELDS + ("disc", "root", "tri_hits")
 
 _I, _U, _P = ctypes.c_int, ctypes.c_uint, ctypes.c_void_p
 
@@ -54,7 +56,12 @@ def library() -> ctypes.CDLL:
     use (``ops/build.py``)."""
     from zraytrace_tpu_torch.ops.build import load
 
-    lib = load("bounce_kernel")
+    return bind(load("bounce_kernel"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare ``zr_bounce_launch``'s C signature on a build of the kernel
+    (this checkout's, or another's of the same interface)."""
     if lib.zr_bounce_launch.argtypes is None:
         lib.zr_bounce_launch.argtypes = [
             _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
@@ -91,12 +98,12 @@ def scene_tables(scene: Scene, camera: Camera):
 def check_mesh(scene: Scene, tri_flash: TriPlanes | None) -> None:
     """What the kernel's mesh mode takes: the scene's flash planes with
     the const-material ``attrs`` table. A mesh whose materials read an
-    image texture has none and raises (ROADMAP.md Queue 1, item 8)."""
+    image texture has none and raises (ROADMAP.md Queue 1, item 5)."""
     if tri_flash is None or tri_flash.attrs is None:
         raise NotImplementedError(
             "the kernel's mesh mode shades const-material meshes from the flash planes' "
             "attrs table (pack_tri_planes(..., const_materials=True)); image-textured "
-            "triangle materials on the card wait (ROADMAP.md Queue 1, item 8)")
+            "triangle materials on the card wait (ROADMAP.md Queue 1, item 5)")
     if tri_flash.n_tris != scene.n_triangles:
         raise ValueError("tri_flash does not hold this scene's triangles")
 
@@ -109,9 +116,10 @@ def bounce_trace(scene: Scene, camera: Camera, pixel_base: torch.Tensor, seed,
     of every lane. Arguments and result are those of
     ``wavefront_trace_reference``: ``(slot_sums (n_slots, N, 3) f32,
     counters (6,) int64)``. A scene with triangles needs ``tri_flash``,
-    its flash planes with the const-material ``attrs`` table, on a CUDA
-    device (``render.flash_pack_cached``); on the CPU they are optional
-    (without them the plain wavefront uses the brute force).
+    its flash planes with the const-material ``attrs`` table and the BVH
+    walk's tables, on a CUDA device (``render.flash_pack_cached``); on the
+    CPU they are optional (without them the plain wavefront uses the brute
+    force; with them its chunk scan, the contract).
     ``work``, an int64 tensor of ``len(WORK_FIELDS)`` on the card, has the
     work done added to it by a counting build of the kernel (slower; for
     pricing a bound, not for rendering). The plain version counts nothing."""
@@ -132,6 +140,7 @@ def bounce_trace(scene: Scene, camera: Camera, pixel_base: torch.Tensor, seed,
     if mesh:
         check_mesh(scene, tri_flash)
         check_planes(tri_flash, dev)
+        check_tables(tri_flash, dev)
     if work is not None and (work.device != dev or work.dtype != torch.int64
                              or work.shape != (len(WORK_FIELDS),)):
         raise ValueError(f"work must be an int64 ({len(WORK_FIELDS)},) tensor on {dev}")
@@ -162,8 +171,9 @@ def bounce_trace(scene: Scene, camera: Camera, pixel_base: torch.Tensor, seed,
     spheres, mats, cam = scene_tables(scene, camera)
 
     if mesh:
-        mesh_ptrs = (tri_flash.planes.data_ptr(), tri_flash.bounds.data_ptr(),
-                     tri_flash.attrs.data_ptr(), tri_flash.root.data_ptr(), tri_flash.n_chunks)
+        mesh_ptrs = (tri_flash.nodes.data_ptr(), tri_flash.rows.data_ptr(),
+                     tri_flash.attrs.data_ptr(), tri_flash.root.data_ptr(),
+                     tri_flash.nodes.shape[0])
     else:
         mesh_ptrs = (None, None, None, None, 0)
 

@@ -7,8 +7,9 @@ flash_intersect.py:589``, reached from ``flash_intersect_triangles``
 ``_winner_scan`` (``:401``). The CUDA source, with the design note, is
 ``csrc/flash_intersect.cu``: one ray per group of lanes spread over a
 chunk's triangles (``csrc/tri_winner_warp.cuh``, shared with the margin
-kernel). Its result is that of the per-ray sequential scan
-``csrc/tri_winner.cuh``, which the bounce kernel's mesh mode runs in place.
+kernel). Its result is that of the per-ray sequential scan in packed
+order, ``flash_intersect_plain``; the bounce kernel's mesh mode reaches
+the same winner by a per-ray BVH walk (``ops/mesh_bvh.py``).
 
 Triangles are sorted into BVH-leaf order (``geometry/bvh.py``) and packed
 as 18 component planes of ``(C, 128)`` chunks with one AABB per chunk.
@@ -58,7 +59,8 @@ LANE = 128  # triangles per chunk
 N_COMP = 18
 # The work counts ``flash_intersect_triangles(..., work=)`` receives, in
 # order: chunk slab tests, chunk visits (128 triangle tests each), and the
-# triangle tests passing the det, t and u stages (csrc/tri_winner.cuh).
+# triangle tests passing the det, t and u stages, in the sequential scan's
+# order (csrc/flash_intersect.cu).
 WORK_FIELDS = ("slab", "visits", "det", "t", "u")
 # The work counts ``flash_intersect_triangles(..., work=)`` receives: those
 # of the sequential scan (``WORK_FIELDS``), then the triangle tests passing
@@ -86,10 +88,15 @@ class TriPlanes(NamedTuple):
     # chunk*128 + lane, for const-material meshes: then the winner's id
     # is the packed id and uv is zero (const materials never read it)
     attrs: torch.Tensor | None = None
+    # the BVH walk's tables (ops/mesh_bvh.py bvh_tables): nodes (M, 8)
+    # and triangle rows (T, 16) in packed order
+    nodes: torch.Tensor | None = None
+    rows: torch.Tensor | None = None
 
     def to(self, device) -> "TriPlanes":
+        move = lambda x: None if x is None else x.to(device)
         return TriPlanes(self.planes.to(device), self.bounds.to(device), self.root.to(device),
-                         self.n_tris, None if self.attrs is None else self.attrs.to(device))
+                         self.n_tris, move(self.attrs), move(self.nodes), move(self.rows))
 
     @property
     def n_chunks(self) -> int:
@@ -98,7 +105,7 @@ class TriPlanes(NamedTuple):
 
 def root_box(bounds):
     """The mesh root box ``(6,)`` [lo3, hi3] over chunk boxes ``(C, 8)``:
-    the bounce kernel's mesh mode tests it before any chunk."""
+    the bounce kernel's mesh mode tests it before it walks the BVH."""
     return torch.cat([bounds[:, 0:3].amin(0), bounds[:, 3:6].amax(0)]).contiguous()
 
 

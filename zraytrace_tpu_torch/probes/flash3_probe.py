@@ -8,7 +8,7 @@ its ``pallas_call`` :109-117): the closest ``t`` per ray over ``NCHUNK =
 over REPS of each ray's closest ``t``. The tool's four modes (``MODES``)
 were layouts of the TPU's vector tiles; here each is the layout question
 it stands for (``csrc/probe_flash_body.cu`` says how): ``base`` (one
-thread per ray, planes read per test, as ``csrc/tri_winner.cuh`` does),
+thread per ray, planes read per test, a sequential chunk scan),
 ``hoist`` (ray terms held once per thread), ``both`` (each chunk's planes
 staged in shared memory per block) and ``r8`` (four lanes per ray, eight
 rays per warp, a warp-shuffle min). Each runs at the tool's 512 rays and,

@@ -272,12 +272,13 @@ _FLASH_MEMO: dict = {}
 
 
 def flash_pack_cached(scene: Scene):
-    """BVH-ordered flash planes of a scene's mesh, on the scene's device,
-    memoized by content (``flash_pack_cached``, ``zraytrace_tpu/
-    render.py:542``): the BVH build and the packing are scene
-    preprocessing, done once per mesh."""
+    """BVH-ordered flash planes of a scene's mesh, with the BVH walk's
+    tables (``ops/mesh_bvh.py``), on the scene's device, memoized by
+    content (``flash_pack_cached``, ``zraytrace_tpu/render.py:542``): the
+    BVH build and the packing are scene preprocessing, done once per mesh."""
     from zraytrace_tpu_torch.geometry.bvh import build_tri_bvh
     from zraytrace_tpu_torch.ops.flash_intersect import pack_tri_planes
+    from zraytrace_tpu_torch.ops.mesh_bvh import bvh_tables
 
     const = mesh_materials_const(scene)
     h = hashlib.sha256()
@@ -288,9 +289,10 @@ def flash_pack_cached(scene: Scene):
     planes = _FLASH_MEMO.get(key)
     if planes is None:
         a, b, c, m = (x.cpu() for x in (scene.tri_a, scene.tri_b, scene.tri_c, scene.tri_mat))
-        order = build_tri_bvh(a, b, c).prim_order
-        planes = pack_tri_planes(a, b, c, order=order, tri_mat=m,
-                                 const_materials=const).to(scene.tri_a.device)
+        bvh = build_tri_bvh(a, b, c)
+        planes = pack_tri_planes(a, b, c, order=bvh.prim_order, tri_mat=m,
+                                 const_materials=const)
+        planes = bvh_tables(planes, bvh).to(scene.tri_a.device)
         while len(_FLASH_MEMO) >= 4:
             _FLASH_MEMO.pop(next(iter(_FLASH_MEMO)))
         _FLASH_MEMO[key] = planes
@@ -314,9 +316,9 @@ def render(scene: Scene, camera: cam.Camera, params: RenderParams, device="cuda"
 
     Row 0 of the image is the *bottom* (the PNG writer flips). On a CUDA
     device the bounce loop runs in the CUDA kernel (mesh scenes in its
-    mesh mode, over flash planes packed once per mesh); on the CPU in the
-    plain wavefront, only when the caller asks for it. Without a card the
-    default device raises.
+    mesh mode, over the BVH walk's tables made once per mesh); on the CPU
+    in the plain wavefront, only when the caller asks for it. Without a
+    card the default device raises.
     """
     from zraytrace_tpu_torch.ops.bounce_kernel import bounce_trace, library
 

@@ -1,7 +1,8 @@
 """Scene library (scenes.zig:26-277); counterpart of
 ``zraytrace_tpu/scenes.py``, with the same constants. Scene indices 0-5
 match ``render_scene`` (scenes.zig:267-277). Scene 5 (goat) raises
-``FileNotFoundError``: its asset is absent upstream too.
+``FileNotFoundError``: its asset is absent upstream too; ``goat_class``
+is the JAX package's synthetic stand-in at its scale.
 """
 
 from __future__ import annotations
@@ -9,6 +10,8 @@ from __future__ import annotations
 import os
 from pathlib import Path
 from typing import Callable, NamedTuple
+
+import numpy as np
 
 from zraytrace_tpu_torch import scene as sc
 from zraytrace_tpu_torch.camera import Camera, make_camera
@@ -144,6 +147,24 @@ def teapot_on_ground(device="cuda") -> BuiltScene:
     camera = make_camera((0.0, 3.0, -9.0), (0.0, 1.0, 5.0), (0.0, 1.0, 0.0), 50.0, 1.0,
                          device=device)
     return BuiltScene(b.build(device), camera, "teapotOnGround")
+
+
+def goat_class(device="cuda") -> BuiltScene:
+    """The goat-class stand-in for scene 5 (``tools/goat_probe.py:31``
+    ``build_goat_class_scene``): a 5x5 grid of teapots 8 apart in blue
+    metal, 158,000 triangles, on a green ground sphere. Not one of the
+    reference's numbered scenes; the scale case of the mesh kernels, its
+    anchor ``showcase/goat_class_256x256_64spp.png``."""
+    a, bb, c = read_obj(assets_dir() / "teapot/teapot.obj").tri_vertices
+    b = SceneBuilder()
+    b.add_sphere((0.0, -102.33, 7.0), 100.0, b.add_lambertian_color(sc.COLOR_GREEN))
+    blue = b.add_metal_color(sc.COLOR_BLUE)
+    offs = [np.asarray([(gx - 2) * 8.0, 0.0, (gz - 2) * 8.0], np.float32)
+            for gx in range(5) for gz in range(5)]
+    b.add_triangles(*(np.concatenate([x + off for off in offs]) for x in (a, bb, c)), blue)
+    camera = make_camera((0.0, 8.0, -30.0), (0.0, 0.0, 1.0), (0.0, 1.0, 0.0), 55.0, 1.0,
+                         device=device)
+    return BuiltScene(b.build(device), camera, "goatClass")
 
 
 SCENES: dict[int, Callable[..., BuiltScene]] = {
