@@ -2,7 +2,8 @@
 // bounce kernel (bounce_kernel.cu) and the bounce-body probe
 // (probe_body.cu), so that the probe times the code the kernel runs:
 // the vector type, PCG4D and its unit floats, and the fused sphere
-// winner over a table of (cx, cy, cz, radius, material) rows.
+// winner over per-sphere rows made from a table of (cx, cy, cz, radius,
+// material) rows.
 //
 // Numerics follow the plain PyTorch versions operation by operation:
 // explicit left-to-right component sums, built with -fmad=false so no
@@ -60,13 +61,21 @@ __device__ __forceinline__ float4 uniform4(uint32_t seed_c, uint32_t pixel,
                      (float)(h.z >> 8) * k, (float)(h.w >> 8) * k);
 }
 
+// The winner's row of one sphere: (cx, cy, cz, c.c - r*r) from its row of
+// the (S, S_COLS) table. The last term depends on the sphere alone, so a
+// kernel makes it once per block, in the plain version's operations and
+// order ((cx*cx + cy*cy) + cz*cz) - r*r, and each test reads one float4.
+__device__ __forceinline__ float4 sphere_row(const float* s) {
+  const float cx = s[S_CX], cy = s[S_CY], cz = s[S_CZ], r = s[S_R];
+  return make_float4(cx, cy, cz, (cx * cx + cy * cy + cz * cz) - r * r);
+}
+
 // The fused sphere winner: the closest root in (t_min, BIG) over n_sph
-// rows of sph (S_COLS floats each). Returns the winning row, -1 on a miss;
-// t_best receives its t (SPH_BIG on a miss). The strict < keeps the first
-// sphere on ties. With COUNT, n_disc counts the tests whose discriminant
-// is positive.
+// sphere_row rows. Returns the winning row, -1 on a miss; t_best receives
+// its t (SPH_BIG on a miss). The strict < keeps the first sphere on ties.
+// With COUNT, n_disc counts the tests whose discriminant is positive.
 template <bool COUNT>
-__device__ __forceinline__ int sphere_winner(const float* sph, int n_sph, V3 o, V3 d,
+__device__ __forceinline__ int sphere_winner(const float4* rows, int n_sph, V3 o, V3 d,
                                              float t_min, float& t_best,
                                              unsigned long long& n_disc) {
   const float o_dot_d = dot3(o, d);
@@ -74,10 +83,10 @@ __device__ __forceinline__ int sphere_winner(const float* sph, int n_sph, V3 o, 
   t_best = SPH_BIG;
   int win = -1;
   for (int si = 0; si < n_sph; ++si) {
-    const V3 c{sph[si * S_COLS + S_CX], sph[si * S_COLS + S_CY], sph[si * S_COLS + S_CZ]};
-    const float r = sph[si * S_COLS + S_R];
+    const float4 row = rows[si];
+    const V3 c{row.x, row.y, row.z};
     const float half_b = o_dot_d - dot3(d, c);
-    const float cc = o_sq - 2.0f * dot3(o, c) + (dot3(c, c) - r * r);
+    const float cc = o_sq - 2.0f * dot3(o, c) + row.w;
     const float disc = half_b * half_b - cc;
     if (COUNT && disc > 0.0f) ++n_disc;
     const float root = disc > 0.0f ? sqrtf(disc) : 0.0f;

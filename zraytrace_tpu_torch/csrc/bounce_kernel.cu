@@ -14,14 +14,31 @@
 // per-launch gather, roll-fold, balanced lane map and launch loop existed
 // only because Mosaic can neither gather inside a kernel nor skip a
 // branch; here a textured hit reads its one nearest texel straight from
-// global memory (the 12.6 MB atlas stays in the 50 MB L2), and a thread
-// whose path ended simply starts the next sample.
+// global memory (the 12.6 MB atlas stays in the 50 MB L2).
+//
+// The loop is the plain wavefront's: one loop of segments per thread,
+// whose state is (slot, sample, depth, ray, throughput, pixel sum). A
+// lane whose path escapes, is absorbed or runs out of depth adds its
+// radiance, commits the pixel's sum on its last sample and starts its
+// next sample's camera ray in the next iteration, as the wavefront
+// regenerates a lane in place. A sample loop around a depth loop would
+// hold every lane of a warp at the end of each sample until the warp's
+// longest path ended: paths of scene 1 take 1 to 31 steps, so under SIMT
+// half the lanes' issue slots would idle at 4 spp. The warp runs while
+// any of its lanes is alive (__any_sync), so each lane still sums its
+// pixel's samples in sample order with the same arithmetic, and the warp
+// reductions at the end see every lane. The loop state costs registers
+// (72 a thread), so blocks are 128 threads: an SM then holds 7 blocks,
+// 28 warps, where 256-thread blocks would fit 3, 24 warps.
 //
 // What bounds it: per-ray FP32 and SFU work (7 sphere tests, PCG4D,
 // sqrt/acos/atan2/sin/cos) and warp divergence from unequal path lengths
 // and material branches, not bytes: a ray reads ~1 texel. There is no
 // matrix work, so no wgmma or TMA. The scene tables (spheres (S,5),
-// materials (M,11), camera (12)) sit in shared memory.
+// materials (M,11), camera (12)) sit in shared memory, with the sphere
+// winner's rows: one float4 (cx, cy, cz, c.c - r*r) per sphere, made once
+// per block, so a sphere test is one broadcast shared load and 16
+// operations (23 with c.c - r*r made in every test).
 // PCG4D and the sphere winner are the device functions of
 // bounce_common.cuh, which the bounce-body probe (probe_body.cu) times.
 //
@@ -50,7 +67,13 @@
 // Work counters (the template parameter COUNT, for a bound on the kernel's
 // time; the instantiations without it are the ones render() runs): the
 // sphere tests whose discriminant is positive, the segments that reach the
-// mesh root box, the triangle hits shaded, and the BVH walk's own counts.
+// mesh root box, the triangle hits shaded, the BVH walk's own counts, and
+// the loop's SIMT counts: lane steps (iterations in which a lane was
+// alive: rays + recursion-depth hits), warp iterations, the material
+// branches (sky, texel fetch, Lambertian, metal, dielectric) each warp
+// iteration ran, summed over iterations, and in mesh mode the node slab
+// tests of the longest walk in each warp iteration, summed: the trips of
+// the walk loop, against which the node tests give the walk's SIMT share.
 //
 // Counters: rays, reflections, background hits, recursion-depth hits and
 // samples are summed per thread, reduced per warp and added with one
@@ -69,7 +92,7 @@ namespace {
 
 constexpr int MAX_SPHERES = 32;
 constexpr int MAX_MATS = 32;
-constexpr int BLOCK = 256;
+constexpr int BLOCK = 128;  // occupancy: see the design note
 constexpr float T_MIN = 1e-3f;
 constexpr float PI_F = 3.14159265358979323846f;
 constexpr float TWO_PI_F = 6.28318530717958647692f;
@@ -126,7 +149,12 @@ __device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
 }
 
 // work array columns after the walk's (ops/bounce_kernel.py WORK_FIELDS)
-enum { W_DISC = zr::B_N, W_ROOT, W_TRI_HITS, W_N };
+enum {
+  W_DISC = zr::B_N, W_ROOT, W_TRI_HITS, W_LANE_STEPS, W_WARP_ITERS, W_WARP_BRANCHES, W_WARP_NODES,
+  W_N
+};
+// the branches a warp iteration may run, counted into W_WARP_BRANCHES
+enum { BR_SKY, BR_TEXEL, BR_LAMBERTIAN, BR_METAL, BR_DIELECTRIC };
 
 // The mesh (mesh mode only): the BVH walk's node table (M, 8) and triangle
 // rows (T, 16) (tri_bvh.cuh), attrs by packed id (C*128, 4) and the root
@@ -152,10 +180,13 @@ bounce_kernel(const float* __restrict__ sph_g, int n_sph,
               unsigned long long* __restrict__ counters,
               unsigned long long* __restrict__ work) {
   __shared__ float sph[MAX_SPHERES * S_COLS];
+  __shared__ float4 sph_rows[MAX_SPHERES];  // the winner's (bounce_common.cuh sphere_row)
   __shared__ float mats[MAX_MATS * M_COLS];
   __shared__ float cam[12];
   __shared__ float box[6];
   for (int i = threadIdx.x; i < n_sph * S_COLS; i += blockDim.x) sph[i] = sph_g[i];
+  for (int i = threadIdx.x; i < n_sph; i += blockDim.x)
+    sph_rows[i] = zr::sphere_row(sph_g + i * S_COLS);
   for (int i = threadIdx.x; i < n_mats * M_COLS; i += blockDim.x) mats[i] = mats_g[i];
   if (threadIdx.x < 12) cam[threadIdx.x] = cam_g[threadIdx.x];
   if (MESH && threadIdx.x < 6) box[threadIdx.x] = mesh.box[threadIdx.x];
@@ -173,72 +204,92 @@ bounce_kernel(const float* __restrict__ sph_g, int n_sph,
   uint32_t steps = 0;
   zr::TbCount cnt{};
   unsigned long long n_disc = 0, n_root = 0, n_tri_hits = 0;
+  // the warp's, kept by every lane
+  unsigned long long n_iters = 0, n_branches = 0, n_warp_nodes = 0;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const int sample_end = sample_start + spp;
 
-  if (lane < n_lanes) {
-    const int b0 = base[lane];
-    for (int k = 0; k < n_slots; ++k) {
-      const int pixel = b0 + k * pixel_stride;
-      if (pixel >= n_pixels) break;  // the wavefront's lane_alive
-      const float px = (float)(pixel % width);
-      const float py = (float)(pixel / width);
-      float ax = 0.0f, ay = 0.0f, az = 0.0f;
-      for (int s = sample_start; s < sample_start + spp; ++s) {
-        // camera ray (camera.pixel_uv + get_rays)
+  // The loop state: slot k of the lane (pixel b0 + k*stride), sample s,
+  // depth, the ray, its throughput and the pixel's running sum. `fresh`:
+  // the path has no ray yet, so this iteration starts with its camera ray.
+  int b0 = 0, k = 0, pixel = 0, s = sample_start, depth = 0;
+  float px = 0.0f, py = 0.0f;
+  V3 o{0.0f, 0.0f, 0.0f}, d{0.0f, 0.0f, 0.0f};
+  float tx = 1.0f, ty = 1.0f, tz = 1.0f;
+  float ax = 0.0f, ay = 0.0f, az = 0.0f;
+  bool fresh = true;
+  bool alive = lane < n_lanes;
+  if (alive) {
+    b0 = base[lane];
+    pixel = b0;
+    alive = pixel < n_pixels;  // the wavefront's lane_alive
+    px = (float)(pixel % width);
+    py = (float)(pixel / width);
+  }
+
+  // One iteration is one step of the plain wavefront's loop for this lane:
+  // a depth check or a traced segment, and where the path ends, its
+  // radiance, the pixel's commit on its last sample and the move to the
+  // next sample. The warp runs while any of its lanes is alive.
+  while (__any_sync(0xffffffffu, alive)) {
+    unsigned branches = 0;  // COUNT: the material branches this lane ran
+    const unsigned long long nodes_before = cnt.n[zr::B_NODES];
+    if (alive) {
+      if (fresh) {  // camera ray (camera.pixel_uv + get_rays)
         const float4 j = uniform4(seed_cam, (uint32_t)pixel, (uint32_t)s, 0u);
         const float u = (px + j.x - 0.5f) / fw;
         const float v = (py + j.y - 0.5f) / fh;
-        V3 o = origin;
-        V3 d = normalize(V3{lower_left.x + u * horizontal.x + v * vertical.x - origin.x,
-                            lower_left.y + u * horizontal.y + v * vertical.y - origin.y,
-                            lower_left.z + u * horizontal.z + v * vertical.z - origin.z});
-        float tx = 1.0f, ty = 1.0f, tz = 1.0f;
-        for (int depth = 0;; ++depth) {
-          ++steps;
-          if (depth >= max_depth) {  // checked before tracing
-            ++n_rec;
-            ++n_samp;
-            break;
-          }
-          ++n_rays;
+        o = origin;
+        d = normalize(V3{lower_left.x + u * horizontal.x + v * vertical.x - origin.x,
+                         lower_left.y + u * horizontal.y + v * vertical.y - origin.y,
+                         lower_left.z + u * horizontal.z + v * vertical.z - origin.z});
+        tx = ty = tz = 1.0f;
+        depth = 0;
+        fresh = false;
+      }
+      ++steps;
+      bool done = true;
+      if (depth >= max_depth) {  // checked before tracing
+        ++n_rec;
+      } else {
+        ++n_rays;
 
-          // fused sphere winner (bounce_common.cuh); strict < keeps the
-          // first sphere on ties
-          float t_best;
-          const int win = zr::sphere_winner<COUNT>(sph, n_sph, o, d, T_MIN, t_best, n_disc);
+        // fused sphere winner (bounce_common.cuh); strict < keeps the
+        // first sphere on ties
+        float t_best;
+        const int win = zr::sphere_winner<COUNT>(sph_rows, n_sph, o, d, T_MIN, t_best,
+                                                 n_disc);
 
-          // mesh mode: the BVH walk's winner below the sphere winner's t
-          bool tri = false;
-          V3 tri_n{0.0f, 0.0f, 0.0f};
-          int tri_mid = 0;
-          if (MESH) {
-            const zr::TwRay ray = zr::tw_ray(o.x, o.y, o.z, d.x, d.y, d.z);
-            if (zr::tw_reach(box, box + 3, ray, T_MIN, t_best)) {
-              if (COUNT) ++n_root;
-              const zr::TbHit th = zr::tri_bvh_winner<COUNT>(mesh.nodes, mesh.n_nodes,
-                                                             mesh.rows, ray, T_MIN, t_best, cnt);
-              if (th.t < t_best) {
-                if (COUNT) ++n_tri_hits;
-                t_best = th.t;
-                tri = true;
-                const float* at = mesh.attrs + 4 * (size_t)th.id;
-                tri_n = V3{__ldg(at), __ldg(at + 1), __ldg(at + 2)};
-                tri_mid = (int)__ldg(at + 3);
-              }
+        // mesh mode: the BVH walk's winner below the sphere winner's t
+        bool tri = false;
+        V3 tri_n{0.0f, 0.0f, 0.0f};
+        int tri_mid = 0;
+        if (MESH) {
+          const zr::TwRay ray = zr::tw_ray(o.x, o.y, o.z, d.x, d.y, d.z);
+          if (zr::tw_reach(box, box + 3, ray, T_MIN, t_best)) {
+            if (COUNT) ++n_root;
+            const zr::TbHit th = zr::tri_bvh_winner<COUNT>(mesh.nodes, mesh.n_nodes, mesh.rows,
+                                                           ray, T_MIN, t_best, cnt);
+            if (th.t < t_best) {
+              if (COUNT) ++n_tri_hits;
+              t_best = th.t;
+              tri = true;
+              const float* at = mesh.attrs + 4 * (size_t)th.id;
+              tri_n = V3{__ldg(at), __ldg(at + 1), __ldg(at + 2)};
+              tri_mid = (int)__ldg(at + 3);
             }
           }
+        }
 
-          if (win < 0 && !tri) {  // escaped: the sky is the only light
-            ++n_bg;
-            ++n_samp;
-            const float t = 0.5f * (d.y + 1.0f);
-            const float w1 = 1.0f - t;
-            ax = ax + tx * (w1 * 1.0f + t * 0.5f);
-            ay = ay + ty * (w1 * 1.0f + t * 0.7f);
-            az = az + tz * (w1 * 1.0f + t * 1.0f);
-            break;
-          }
-
+        if (win < 0 && !tri) {  // escaped: the sky is the only light
+          ++n_bg;
+          if (COUNT) branches |= 1u << BR_SKY;
+          const float t = 0.5f * (d.y + 1.0f);
+          const float w1 = 1.0f - t;
+          ax = ax + tx * (w1 * 1.0f + t * 0.5f);
+          ay = ay + ty * (w1 * 1.0f + t * 0.7f);
+          az = az + tz * (w1 * 1.0f + t * 1.0f);
+        } else {
           // hit attributes: the attrs row of a triangle, else
           // geometry/sphere.py sphere_attributes
           const V3 p{o.x + t_best * d.x, o.y + t_best * d.y, o.z + t_best * d.z};
@@ -264,6 +315,7 @@ bounce_kernel(const float* __restrict__ sph_g, int n_sph,
           if (mtype == LAMBERTIAN || mtype == METAL) {
             if (m[M_TEXTYPE] == (float)TEX_IMAGE) {
               // spherical uv, then the nearest texel (textures.py)
+              if (COUNT) branches |= 1u << BR_TEXEL;
               const float ny = fminf(fmaxf(out.y, -1.0f + 1e-7f), 1.0f - 1e-7f);
               const float theta = acosf(-ny);
               float nx = out.x;
@@ -287,15 +339,18 @@ bounce_kernel(const float* __restrict__ sph_g, int n_sph,
           }
           bool absorbed = false;
           if (mtype == LAMBERTIAN) {
+            if (COUNT) branches |= 1u << BR_LAMBERTIAN;
             const float z = rnd.x * 2.0f - 1.0f;
             const float ph = TWO_PI_F * rnd.y;
             const float rr = sqrtf(fmaxf(0.0f, 1.0f - z * z));
             nd = V3{n.x + rr * cosf(ph), n.y + rr * sinf(ph), n.z + z};
             if (dot3(nd, nd) < 1e-12f) nd = n;
           } else if (mtype == METAL) {
+            if (COUNT) branches |= 1u << BR_METAL;
             nd = met;
             absorbed = dot3(met, n) <= 0.0f;
           } else {  // dielectric
+            if (COUNT) branches |= 1u << BR_DIELECTRIC;
             const float ior = m[M_IOR];
             const float ratio = front ? 1.0f / ior : ior;
             const V3 nd_in{-d.x, -d.y, -d.z};
@@ -317,25 +372,48 @@ bounce_kernel(const float* __restrict__ sph_g, int n_sph,
               nd = V3{perp.x + nr * n.x, perp.y + nr * n.y, perp.z + nr * n.z};
             }
           }
-          if (absorbed) {
-            ++n_samp;
-            break;
+          if (!absorbed) {
+            // normalize_safe: multiply by 1/sqrt, zero for degenerate input
+            const float n2 = dot3(nd, nd);
+            const float inv = n2 > 1e-20f ? 1.0f / sqrtf(n2) : 0.0f;
+            d = V3{nd.x * inv, nd.y * inv, nd.z * inv};
+            o = p;
+            tx = tx * ar;
+            ty = ty * ag;
+            tz = tz * ab;
+            ++n_refl;
+            ++depth;
+            done = false;
           }
-          // normalize_safe: multiply by 1/sqrt, zero for degenerate input
-          const float n2 = dot3(nd, nd);
-          const float inv = n2 > 1e-20f ? 1.0f / sqrtf(n2) : 0.0f;
-          d = V3{nd.x * inv, nd.y * inv, nd.z * inv};
-          o = p;
-          tx = tx * ar;
-          ty = ty * ag;
-          tz = tz * ab;
-          ++n_refl;
         }
       }
-      float* dst = slot_sums + ((size_t)k * n_lanes + lane) * 3;
-      dst[0] = ax;
-      dst[1] = ay;
-      dst[2] = az;
+      if (done) {  // the path ended: the lane moves to its next sample
+        ++n_samp;
+        fresh = true;
+        if (++s == sample_end) {  // the pixel's last sample: commit it to its slot
+          float* dst = slot_sums + ((size_t)k * n_lanes + lane) * 3;
+          dst[0] = ax;
+          dst[1] = ay;
+          dst[2] = az;
+          ax = ay = az = 0.0f;
+          s = sample_start;
+          if (++k < n_slots) {
+            pixel = b0 + k * pixel_stride;
+            alive = pixel < n_pixels;
+            px = (float)(pixel % width);
+            py = (float)(pixel / width);
+          } else {
+            alive = false;
+          }
+        }
+      }
+    }
+    if (COUNT) {
+      ++n_iters;
+      n_branches += __popc(__reduce_or_sync(0xffffffffu, branches));
+      if (MESH)  // the walk loop's trips: its longest walk in the warp
+        n_warp_nodes += __reduce_max_sync(0xffffffffu,
+                                          (unsigned)(cnt.n[zr::B_NODES] - nodes_before));
     }
   }
 
@@ -354,6 +432,12 @@ bounce_kernel(const float* __restrict__ sph_g, int n_sph,
     zr::tw_add(&work[W_DISC], n_disc);
     zr::tw_add(&work[W_ROOT], n_root);
     zr::tw_add(&work[W_TRI_HITS], n_tri_hits);
+    zr::tw_add(&work[W_LANE_STEPS], steps);
+    if (leader && n_iters) {
+      atomicAdd(&work[W_WARP_ITERS], n_iters);
+      atomicAdd(&work[W_WARP_BRANCHES], n_branches);
+      atomicAdd(&work[W_WARP_NODES], n_warp_nodes);
+    }
   }
 }
 

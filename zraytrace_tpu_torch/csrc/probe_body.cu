@@ -144,9 +144,9 @@ __device__ __forceinline__ float wrap01(float x) {
   return x < 0.0f ? x + 1.0f : x;
 }
 
-__device__ __forceinline__ void body_full(Lane& c, const float* sph, int n_sph,
-                                          const float* mats, const float* cam, int base,
-                                          const Params& p, int mask) {
+__device__ __forceinline__ void body_full(Lane& c, const float* sph, const float4* rows,
+                                          int n_sph, const float* mats, const float* cam,
+                                          int base, const Params& p, int mask) {
   const uint32_t seed_sc = (uint32_t)p.seed ^ STREAM_SCATTER;
   const uint32_t seed_cam = (uint32_t)p.seed ^ STREAM_CAMERA;
   const int pixel = add(base, mul(c.slot, p.stride));
@@ -156,7 +156,7 @@ __device__ __forceinline__ void body_full(Lane& c, const float* sph, int n_sph,
 
   float t_best;
   unsigned long long n_disc = 0;
-  const int win = zr::sphere_winner<false>(sph, n_sph, V3{c.ox, c.oy, c.oz},
+  const int win = zr::sphere_winner<false>(rows, n_sph, V3{c.ox, c.oy, c.oz},
                                            V3{c.dx, c.dy, c.dz}, T_MIN, t_best, n_disc);
   float cxs = 0.0f, cys = 0.0f, czs = 0.0f, rs = 1.0f;
   int ms = 0;
@@ -309,15 +309,15 @@ __device__ __forceinline__ void body_full(Lane& c, const float* sph, int n_sph,
 }
 
 template <int V>
-__device__ __forceinline__ void body(Lane& c, const float* sph, int n_sph, const float* mats,
-                                     int n_mats, const float* cam, int base, const Params& p,
-                                     int mask) {
+__device__ __forceinline__ void body(Lane& c, const float* sph, const float4* rows, int n_sph,
+                                     const float* mats, int n_mats, const float* cam, int base,
+                                     const Params& p, int mask) {
   if (V == PASS) {
     return;
   } else if (V == SPHERES) {
     float t_best;
     unsigned long long n_disc = 0;
-    const int win = zr::sphere_winner<false>(sph, n_sph, V3{c.ox, c.oy, c.oz},
+    const int win = zr::sphere_winner<false>(rows, n_sph, V3{c.ox, c.oy, c.oz},
                                              V3{c.dx, c.dy, c.dz}, T_MIN, t_best, n_disc);
     const int ms = win >= 0 ? (int)sph[win * zr::S_COLS + zr::S_MAT] : 0;
     c.tr = t_best < BIG ? c.tr : t_best;
@@ -351,7 +351,7 @@ __device__ __forceinline__ void body(Lane& c, const float* sph, int n_sph, const
     for (int col = 0; col < M_COLS; ++col) acc = acc + mats[ms * M_COLS + col];
     c.ox = c.ox + acc;
   } else {
-    body_full(c, sph, n_sph, mats, cam, base, p, mask);
+    body_full(c, sph, rows, n_sph, mats, cam, base, p, mask);
   }
 }
 
@@ -363,9 +363,12 @@ body_kernel(const float* __restrict__ sph_g, int n_sph, const float* __restrict_
             float* __restrict__ out_f, int* __restrict__ out_i, int n, Params p, int iters,
             int mask) {
   __shared__ float sph[MAX_SPHERES * zr::S_COLS];
+  __shared__ float4 rows[MAX_SPHERES];  // the winner's rows, as the bounce kernel makes them
   __shared__ float mats[MAX_MATS * M_COLS];
   __shared__ float cam[12];
   for (int i = threadIdx.x; i < n_sph * zr::S_COLS; i += blockDim.x) sph[i] = sph_g[i];
+  for (int i = threadIdx.x; i < n_sph; i += blockDim.x)
+    rows[i] = zr::sphere_row(sph_g + i * zr::S_COLS);
   for (int i = threadIdx.x; i < n_mats * M_COLS; i += blockDim.x) mats[i] = mats_g[i];
   if (threadIdx.x < 12) cam[threadIdx.x] = cam_g[threadIdx.x];
   __syncthreads();
@@ -379,7 +382,8 @@ body_kernel(const float* __restrict__ sph_g, int n_sph, const float* __restrict_
          in_i[lane], in_i[(size_t)n + lane], in_i[2 * (size_t)n + lane]};
   const int base = base_g[lane];
 #pragma unroll 1
-  for (int i = 0; i < iters; ++i) body<V>(c, sph, n_sph, mats, n_mats, cam, base, p, mask);
+  for (int i = 0; i < iters; ++i)
+    body<V>(c, sph, rows, n_sph, mats, n_mats, cam, base, p, mask);
   const float o[N_F32] = {c.ox, c.oy, c.oz, c.dx, c.dy, c.dz, c.tr, c.tg, c.tb, c.ar, c.ag, c.ab};
 #pragma unroll
   for (int k = 0; k < N_F32; ++k) out_f[(size_t)k * n + lane] = o[k];

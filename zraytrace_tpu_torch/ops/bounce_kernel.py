@@ -31,7 +31,8 @@ from zraytrace_tpu_torch.render import wavefront_trace as wavefront_trace_refere
 from zraytrace_tpu_torch.scene import Scene
 
 __all__ = ["bounce_trace", "wavefront_trace_reference", "LAUNCHES", "MESH_LAUNCHES",
-           "WORK_FIELDS", "check_mesh", "library", "bind", "scene_tables"]
+           "WORK_FIELDS", "simt", "check_mesh", "library", "bind", "scene_tables",
+           "sphere_rows"]
 
 # Kernel launches made by ``bounce_trace`` in this process, and those of
 # them in mesh mode.
@@ -45,10 +46,36 @@ MAX_MATS = 32
 # The work counts ``bounce_trace(..., work=)`` receives, in order: the
 # BVH walk's (node slab tests, leaves entered, triangle tests, and those
 # passing det, t and u), then sphere tests with a positive discriminant,
-# segments reaching the mesh root box and triangle hits.
-WORK_FIELDS = BVH_WORK_FIELDS + ("disc", "root", "tri_hits")
+# segments reaching the mesh root box and triangle hits; then the loop's
+# SIMT counts: ``lane_steps``, the iterations in which a lane was alive
+# (always rays + recursion-depth hits), ``warp_iters``, the iterations
+# each warp ran, summed over warps, ``warp_branches``, the material
+# branches (sky, texel fetch, Lambertian, metal, dielectric) each warp
+# iteration ran, summed over iterations, and ``warp_nodes``, in mesh mode
+# the node slab tests of each warp iteration's longest walk, summed (the
+# walk loop's trips). ``lane_steps / (32 * warp_iters)`` is the share of
+# issued lanes that did work; ``nodes / (32 * warp_nodes)`` the walk's.
+WORK_FIELDS = BVH_WORK_FIELDS + ("disc", "root", "tri_hits", "lane_steps", "warp_iters",
+                                 "warp_branches", "warp_nodes")
 
 _I, _U, _P = ctypes.c_int, ctypes.c_uint, ctypes.c_void_p
+
+
+def simt(work: dict, counters) -> dict:
+    """The loop's SIMT figures from a counting launch's ``work`` (by
+    ``WORK_FIELDS``) and its counters: ``efficiency``, ``lane_steps / (32
+    * warp_iters)``; ``branches_per_iter``, material branches per warp
+    iteration; ``walk_efficiency``, ``nodes / (32 * warp_nodes)`` (None
+    without a walk); and ``identity``, whether ``lane_steps`` equals rays
+    plus recursion-depth hits, as it must."""
+    rays, rec = int(counters[0]), int(counters[3])
+    iters = max(work["warp_iters"], 1)
+    return dict(lane_steps=work["lane_steps"], warp_iters=work["warp_iters"],
+                efficiency=work["lane_steps"] / (32 * iters),
+                branches_per_iter=work["warp_branches"] / iters,
+                walk_efficiency=(work["nodes"] / (32 * work["warp_nodes"])
+                                 if work["warp_nodes"] else None),
+                identity=work["lane_steps"] == rays + rec)
 
 
 def library() -> ctypes.CDLL:
@@ -93,6 +120,16 @@ def scene_tables(scene: Scene, camera: Camera):
         hw], dim=1)
     return (spheres.contiguous(), mats.contiguous(),
             camera.flat().contiguous())
+
+
+def sphere_rows(spheres: torch.Tensor) -> torch.Tensor:
+    """The sphere winner's rows, as the kernel makes them once per block
+    from ``scene_tables``' spheres (``csrc/bounce_common.cuh``
+    ``sphere_row``): ``(S, 4)`` f32 [cx, cy, cz, c.c - r^2], the last term
+    in the plain version's operations and order, ``((cx*cx + cy*cy) +
+    cz*cz) - r*r``."""
+    cx, cy, cz, r = spheres[:, 0], spheres[:, 1], spheres[:, 2], spheres[:, 3]
+    return torch.stack([cx, cy, cz, (cx * cx + cy * cy + cz * cz) - r * r], dim=1)
 
 
 def check_mesh(scene: Scene, tri_flash: TriPlanes | None) -> None:

@@ -33,7 +33,7 @@ import torch
 
 from zraytrace_tpu_torch import rng as zrng
 from zraytrace_tpu_torch import vecmath as vm
-from zraytrace_tpu_torch.ops.bounce_kernel import scene_tables
+from zraytrace_tpu_torch.ops.bounce_kernel import scene_tables, sphere_rows
 from zraytrace_tpu_torch.probes import common
 from zraytrace_tpu_torch.scenes import three_balls
 
@@ -101,7 +101,9 @@ def _floordiv(a, b):
 
 
 def _sphere_winner(o, d, sph):
-    """The fused winner over the sphere rows: (t_best, cx, cy, cz, r, mat)."""
+    """The fused winner over the sphere rows: (t_best, cx, cy, cz, r, mat).
+    Each test reads c.c - r^2 from the winner's rows, as the kernel does
+    (``sphere_rows``)."""
     ox, oy, oz = o
     dx, dy, dz = d
     o_dot_d = _dot(ox, oy, oz, dx, dy, dz)
@@ -110,11 +112,12 @@ def _sphere_winner(o, d, sph):
     cxs, cys, czs = torch.zeros_like(ox), torch.zeros_like(ox), torch.zeros_like(ox)
     rs = torch.ones_like(ox)
     ms = torch.zeros(ox.shape, dtype=torch.int32, device=ox.device)
+    rows = sphere_rows(sph)
     for s in range(sph.shape[0]):
         cx, cy, cz, r = sph[s, 0], sph[s, 1], sph[s, 2], sph[s, 3]
         mid = int(sph[s, 4])
         half_b = o_dot_d - (dx * cx + dy * cy + dz * cz)
-        cc = o_sq - 2.0 * (ox * cx + oy * cy + oz * cz) + (cx * cx + cy * cy + cz * cz - r * r)
+        cc = o_sq - 2.0 * (ox * cx + oy * cy + oz * cz) + rows[s, 3]
         disc = half_b * half_b - cc
         pos = disc > 0.0
         root = torch.where(pos, vm.sqrt(torch.where(pos, disc, 1.0)), 0.0)
@@ -429,11 +432,12 @@ def make_inputs(device, shape=(R_TOT, L), seed: int = 0):
 # Operations per lane and iteration of ``full``, counted from
 # csrc/probe_body.cu (adds, multiplies, divisions, square roots, sin/cos
 # and negations as one each; compares and selects not counted; 7 spheres):
-# sphere winner 10 + 7 x 28, hit point, normal and facing 18, the
+# sphere winner 10 + 7 x 21 (each sphere's c.c - r^2 is made once per
+# block, bounce_common.cuh sphere_row), hit point, normal and facing 18, the
 # polynomial acos/atan2 and uv 32, the material select 0, the texel index
 # 6 (as int32 below), Lambertian, mirror and dielectric directions 62,
 # normalize 10, sky and radiance 16, throughput 3, the camera ray 27.
-FULL_FP32_OPS = 10 + 7 * 28 + 18 + 32 + 62 + 10 + 16 + 3 + 27
+FULL_FP32_OPS = 10 + 7 * 21 + 18 + 32 + 62 + 10 + 16 + 3 + 27
 # int32 per lane and iteration: pixel and alive 4, two PCG4D draws with
 # their seeds 2 x 30, texel index 6, depth, sample and slot updates 6,
 # pixel % and // width 4.

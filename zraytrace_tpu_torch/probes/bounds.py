@@ -23,7 +23,8 @@ PEAK_BYTES = 3.35e12
 # csrc/tri_winner.cuh and csrc/tri_bvh.cuh
 CAMERA_FLOPS = 34  # jitter scale 4, viewport uv 6, direction 15, normalize 9
 SEGMENT_FLOPS = 10  # o.d and |o|^2
-SPHERE_TEST_FLOPS = 23  # every sphere test: half-b 6, c 15, discriminant 2
+SPHERE_ROW_FLOPS = 7  # once per sphere: c.c 5, r^2 1, their difference 1
+SPHERE_TEST_FLOPS = 16  # every sphere test: half-b 6, c 8 (c.c - r^2 made), discriminant 2
 SPHERE_ROOT_FLOPS = 5  # discriminant > 0: sqrt 1, two roots 4
 MISS_FLOPS = 18  # sky gradient 9, weighted sum 9
 HIT_FLOPS = 57  # point 6, facing 8, reflect 12, scatter 18, normalize 10, albedo 3
@@ -90,9 +91,12 @@ def bounce_flops(c, n_spheres: int, w: dict, mesh: bool) -> int:
     and, in mesh mode, the ray set-up and root-box test of every segment
     and the triangle winner's work: the BVH walk's (``walk_flops``), or,
     for the work counts of a chunk-scan build, the chunk scan's
-    (``tri_flops``)."""
+    (``tri_flops``). A sphere's c.c - r^2 is priced once, as the kernel's
+    prologue makes it, so a build that made it in every test is priced on
+    the same yardstick."""
     rays, refl, bg, _, samples, _ = c
-    flops = (samples * CAMERA_FLOPS + rays * (SEGMENT_FLOPS + n_spheres * SPHERE_TEST_FLOPS)
+    flops = (samples * CAMERA_FLOPS + n_spheres * SPHERE_ROW_FLOPS
+             + rays * (SEGMENT_FLOPS + n_spheres * SPHERE_TEST_FLOPS)
              + w["disc"] * SPHERE_ROOT_FLOPS + bg * MISS_FLOPS + (rays - bg) * HIT_FLOPS
              + (rays - bg - w["tri_hits"]) * SPHERE_NORMAL_FLOPS)
     if mesh:

@@ -1,5 +1,5 @@
-"""How does the bounce kernel's mesh mode compare with another checkout's
-on the lanes the main paths give it?
+"""How does the bounce kernel compare with another checkout's on the lanes
+the main paths give it, in sphere mode and in mesh mode?
 
 The port's own measurement (no TPU tool stands behind it). It builds
 ``csrc/bounce_kernel.cu`` of this checkout and, with ``--parent DIR``
@@ -7,34 +7,47 @@ The port's own measurement (no TPU tool stands behind it). It builds
 on the lanes ``render()`` gives the kernel (one launch, ``min(pixels,
 2^20)`` lanes, each pixel's samples in one thread):
 
+- ``scene1_4``: scene 1 (spheres only) at 1000x1000, 4 spp, depth 30
+  (``chip_smoke.py`` phase 4), 5 launches a round;
+- ``scene1_1000``: scene 1 at 1000x1000, 1000 spp, depth 30 (the render
+  of phase 8);
 - ``phase7``: scene 3 at 700x700, 4 spp, depth 20 (``chip_smoke.py``
-  phase 7), 5 launches a round;
+  phase 7), 5 launches a round; ``phase7_1spp``, the same at 1 spp (each
+  lane traces one path, so a sample loop and a segment loop schedule the
+  same work), and ``phase7_bare``, phase 7's lanes on scene 3 without its
+  mesh (sphere mode);
 - ``teapot_500``: scene 3 at 700x700, 500 spp, depth 20 (the headline);
 - ``man_100``, ``bunny_100``, ``circle_100``: scenes 0, 2 and 4 at
   700x700, 100 spp, depth 20;
 - ``goat_256``: the goat-class scene (158,000 triangles) at 256x256, 64
   spp, depth 8.
 
-A build whose mesh mode walks the BVH (its source calls
-``tri_bvh_winner``) is given the node and row tables, an older one the
-chunk planes and boxes, in the same argument slots. Each launch is timed
-with CUDA events (its outputs' zeroing included, microseconds); the builds
-run in the order given and then in reverse (A B, B A), and each time is the
-mean of the two rounds. Each build's counters and slot sums are compared
-with this checkout's; for each pixel whose sum differs (the first 8), the
+A sphere scene gets null mesh pointers. For a mesh scene, a build whose
+mesh mode walks the BVH (its source calls ``tri_bvh_winner``) is given the
+node and row tables, an older one the chunk planes and boxes, in the same
+argument slots. Each launch is timed with CUDA events (its outputs'
+zeroing included, microseconds); the builds run in the order given and
+then in reverse (A B, B A), and each time is the mean of the two rounds.
+Each build's counters and slot sums are compared with this checkout's;
+on a mesh scene, for each pixel whose sum differs (the first 8), the
 plain wavefront retraces the pixel's samples on the card through the
 flash kernel (the chunk scan's result) and lists every segment on which
 the BVH walk's twin (``ops/mesh_bvh.py``) picks another winner. Last,
-each build's counting instantiation gives its work counts per segment
-that reaches the mesh's root box, and the bound
-they price (``probes/bounds.py``): the walk's node, leaf and triangle
-tests, or the chunk scan's chunk slab tests and 128 triangle tests per
-chunk visit.
+each build's counting instantiation gives its work counts, each read by
+the build's own field list: per segment that reaches the mesh's root box
+the walk's node, leaf and triangle tests, or the chunk scan's chunk slab
+tests and 128 triangle tests per chunk visit; the bound they price
+(``probes/bounds.py``, one yardstick for every build); and, from a build
+that counts them, the loop's SIMT counts: ``lane_steps / (32 x
+warp_iters)``, the share of issued lanes that did work, and the material
+branches per warp iteration. ``lane_steps`` must equal rays plus
+recursion-depth hits.
 
     python -m zraytrace_tpu_torch.probes.mesh_ab [--parent DIR ...] [shape ...]
 
-Needs a CUDA device. Prints ``[ptxas]``, ``[ab]`` and ``[work]`` lines and
-one JSON line.
+Needs a CUDA device. Prints ``[ptxas]``, ``[ab]``, ``[work]`` and
+``[simt]`` lines and one JSON line; exits 1 where the ``lane_steps``
+identity fails.
 """
 
 from __future__ import annotations
@@ -55,14 +68,21 @@ from zraytrace_tpu_torch.probes.common import card_line
 
 THIS = "this"  # the name of this checkout's build
 SEED = 42
-# shape -> (scene index, or "goat" for the goat-class scene; width, height,
-# spp, depth)
-SHAPES = {"phase7": (3, 700, 700, 4, 20), "teapot_500": (3, 700, 700, 500, 20),
+# shape -> (scene index, "goat" for the goat-class scene or "bare3" for
+# scene 3 without its mesh; width, height, spp, depth)
+SHAPES = {"scene1_4": (1, 1000, 1000, 4, 30), "scene1_1000": (1, 1000, 1000, 1000, 30),
+          "phase7": (3, 700, 700, 4, 20), "phase7_1spp": (3, 700, 700, 1, 20),
+          "phase7_bare": ("bare3", 700, 700, 4, 20), "teapot_500": (3, 700, 700, 500, 20),
           "man_100": (0, 700, 700, 100, 20), "bunny_100": (2, 700, 700, 100, 20),
           "circle_100": (4, 700, 700, 100, 20), "goat_256": ("goat", 256, 256, 64, 8)}
-REPS = {"phase7": 5}  # launches per timed round (1 elsewhere)
-# a chunk-scan build's work counts (its tri_winner.cuh W_* and W_DISC...)
+REPS = {"scene1_4": 5, "phase7": 5, "phase7_1spp": 5, "phase7_bare": 5}  # per round (1 elsewhere)
+# the work counts of a build without the SIMT counts: a BVH walk's, and a
+# chunk scan's (its tri_winner.cuh W_* and W_DISC...)
+WALK_WORK_FIELDS = bk.WORK_FIELDS[:bk.WORK_FIELDS.index("tri_hits") + 1]
 CHUNK_WORK_FIELDS = fi.WORK_FIELDS + ("disc", "root", "tri_hits")
+# SIMT efficiency of the host model (probes/simt_model.py, seed 42) at
+# scene1_4: a sample loop around a depth loop, and one segment loop
+MODEL_SIMT = {"scene1_4": (0.4835, 0.6671)}
 
 
 class Build:
@@ -70,22 +90,26 @@ class Build:
 
     def __init__(self, name: str, csrc: Path):
         self.name = name
-        self.walk = "tri_bvh_winner" in (csrc / "bounce_kernel.cu").read_text()
+        source = (csrc / "bounce_kernel.cu").read_text()
+        self.walk = "tri_bvh_winner" in source
         self.lib = bk.bind(load("bounce_kernel", csrc))
-        self.fields = bk.WORK_FIELDS if self.walk else CHUNK_WORK_FIELDS
+        self.fields = (bk.WORK_FIELDS if "W_LANE_STEPS" in source
+                       else WALK_WORK_FIELDS if self.walk else CHUNK_WORK_FIELDS)
 
     def launcher(self, scene, camera, tf, w, h, spp, depth):
         """``render()``'s launch on outputs of its own: a function of
         ``work=None`` that zeroes the counters, launches and returns
-        ``(slot_sums, counters)``."""
-        dev = tf.planes.device
+        ``(slot_sums, counters)``. ``tf`` is None for a sphere scene."""
+        dev = scene.sph_center.device
         n_pix = w * h
         n = min(n_pix, 1 << 20)
         slots = -(-n_pix // n)
         base = torch.arange(n, dtype=torch.int32, device=dev)
         spheres, mats, cam = bk.scene_tables(scene, camera)
         atlas = scene.atlas.contiguous()
-        if self.walk:
+        if tf is None:
+            mesh = (None,) * 4 + (0,)
+        elif self.walk:
             mesh = (tf.nodes, tf.rows, tf.attrs, tf.root, tf.nodes.shape[0])
         else:
             mesh = (tf.planes, tf.bounds, tf.attrs, tf.root, tf.n_chunks)
@@ -97,7 +121,7 @@ class Build:
             err = self.lib.zr_bounce_launch(
                 spheres.data_ptr(), spheres.shape[0], mats.data_ptr(), mats.shape[0],
                 cam.data_ptr(), atlas.data_ptr(), atlas.shape[2],
-                *[x.data_ptr() for x in mesh[:4]], mesh[4],
+                *[None if x is None else x.data_ptr() for x in mesh[:4]], mesh[4],
                 None if work is None else work.data_ptr(), base.data_ptr(), n, w, h, 0, spp,
                 depth, SEED, n, n_pix, slots, sums.data_ptr(), counters.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
@@ -168,7 +192,8 @@ def measure(dev, parents=(), shapes=None) -> list[dict]:
     """One row per shape and build: ``{"shape", "build", "walk", "ms",
     "rounds", "counters", "equal", "pixels_differing",
     "segments_differing", "work", "per_root_segment", "bound_ms",
-    "bound_by"}``."""
+    "bound_by", "simt"}`` (``per_root_segment`` empty on a sphere scene,
+    ``simt`` None from a build without the SIMT counts)."""
     from zraytrace_tpu_torch.render import flash_pack_cached
     from zraytrace_tpu_torch.scenes import build_scene, goat_class
 
@@ -177,8 +202,16 @@ def measure(dev, parents=(), shapes=None) -> list[dict]:
     for shape in shapes or SHAPES:
         index, w, h, spp, depth = SHAPES[shape]
         if index not in scenes:
-            b = goat_class(dev) if index == "goat" else build_scene(index, dev)
-            scenes[index] = (b.scene, b.camera, flash_pack_cached(b.scene))
+            if index == "goat":
+                b = goat_class(dev)
+            elif index == "bare3":
+                b = build_scene(3, dev)
+                b = b._replace(scene=b.scene._replace(
+                    **{k: getattr(b.scene, k)[:0] for k in ("tri_a", "tri_b", "tri_c", "tri_mat")}))
+            else:
+                b = build_scene(index, dev)
+            tf = flash_pack_cached(b.scene) if b.scene.n_triangles else None
+            scenes[index] = (b.scene, b.camera, tf)
         scene, camera, tf = scenes[index]
         launch = {b.name: b.launcher(scene, camera, tf, w, h, spp, depth) for b in all_builds}
         outs = {b.name: launch[b.name]() for b in all_builds}  # warm-up, and the results
@@ -193,20 +226,27 @@ def measure(dev, parents=(), shapes=None) -> list[dict]:
             launch[b.name](work=work)
             work = dict(zip(b.fields, work.tolist()))
             c = counters.tolist()
-            tables = (tf.nodes, tf.rows) if b.walk else (tf.planes, tf.bounds)
-            b_ms, b_by = bound(bounce_flops(c, scene.n_spheres, work, mesh=True),
-                               nbytes(*tables, tf.attrs, scene.atlas, sums))
-            per = {k: round(work[k] / max(work["root"], 1), 4) for k in b.fields[:-3]}
+            if tf is None:
+                tables, per = (), {}
+            else:
+                tables = (tf.nodes, tf.rows, tf.attrs) if b.walk else (tf.planes, tf.bounds,
+                                                                       tf.attrs)
+                per = {k: round(work[k] / max(work["root"], 1), 4)
+                       for k in b.fields[:b.fields.index("disc")]}
+            spheres, mats, _ = bk.scene_tables(scene, camera)
+            b_ms, b_by = bound(bounce_flops(c, scene.n_spheres, work, mesh=tf is not None),
+                               nbytes(*tables, spheres, mats, scene.atlas, sums))
             ms = sum(times[b.name]) / 2
             equal = torch.equal(counters, ref_counters) and torch.equal(sums, ref_sums)
             slot, lane = torch.nonzero((sums != ref_sums).any(-1)).t().tolist()
             pixels = [k * sums.shape[1] + i for k, i in zip(slot, lane)]
             segments = (differing_segments(scene, camera, tf, pixels[:8], w, h, spp, depth)
-                        if pixels else [])
+                        if pixels and tf is not None else [])
             rows.append(dict(shape=shape, build=b.name, walk=b.walk, ms=ms, rounds=times[b.name],
                              counters=c, equal=equal, pixels_differing=pixels,
                              segments_differing=segments, work=work, per_root_segment=per,
-                             bound_ms=b_ms, bound_by=b_by))
+                             bound_ms=b_ms, bound_by=b_by,
+                             simt=bk.simt(work, c) if "lane_steps" in work else None))
     return rows
 
 
@@ -238,11 +278,32 @@ def main(argv=None) -> int:
                   f"t_init {seg['t_init']}: chunk scan (t, id, hit) {seg['chunk_scan']}, BVH walk "
                   f"{seg['walk']}", flush=True)
     for r in rows:
-        kind = "BVH walk" if r["walk"] else "chunk scan"
-        print(f"[work] {r['shape']} {r['build']} ({kind}): {r['work']['root']} segments reach "
-              f"the root box; per such segment {r['per_root_segment']}; bound {r['bound_ms']:.4f} "
+        kind = ("sphere mode" if not r["per_root_segment"] else
+                "BVH walk" if r["walk"] else "chunk scan")
+        reach = (f"{r['work']['root']} segments reach the root box; per such segment "
+                 f"{r['per_root_segment']}; " if r["per_root_segment"] else "no mesh; ")
+        print(f"[work] {r['shape']} {r['build']} ({kind}): {reach}bound {r['bound_ms']:.4f} "
               f"ms ({r['bound_by']}), {r['ms'] / r['bound_ms']:.1f}x, on {card}", flush=True)
+    broken = []
+    for r in rows:
+        if r["simt"] is None:
+            continue
+        m = r["simt"]
+        model = MODEL_SIMT.get(r["shape"])
+        against = (f" (host model, probes/simt_model.py: sample loop around a depth loop "
+                   f"{model[0]:.1%}, one segment loop {model[1]:.1%})" if model else "")
+        print(f"[simt] {r['shape']} {r['build']}: lane_steps {m['lane_steps']} "
+              f"{'=' if m['identity'] else '!='} rays + recursion-depth hits; warp_iters "
+              f"{m['warp_iters']}; lane_steps / (32 x warp_iters) {m['efficiency']:.4f}"
+              f"{against}; {m['branches_per_iter']:.3f} material branches per warp iteration"
+              + (f"; walk nodes / (32 x warp_nodes) {m['walk_efficiency']:.4f}"
+                 if m["walk_efficiency"] is not None else ""), flush=True)
+        if not m["identity"]:
+            broken.append(f"{r['shape']} {r['build']}")
     print(json.dumps({"mesh_ab": rows, "card": card}))
+    if broken:
+        print(f"mesh_ab: lane_steps != rays + recursion-depth hits in {broken}", file=sys.stderr)
+        return 1
     return 0
 
 
