@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from zraytrace_tpu import rng as jrng
+from zraytrace_tpu_torch import vecmath as vm
 from zraytrace_tpu_torch.probes import body_probe, common, flash2_probe, flash3_probe
 from zraytrace_tpu_torch.probes import gather_probe3, inkernel_texel_probe, overlap_probe
 from zraytrace_tpu_torch.probes import pallas_probe, rng_probe
@@ -173,6 +174,19 @@ def test_texel_inputs_and_library_row():
     plain = inkernel_texel_probe.texel_gather_plain(mode, table, idx.reshape(-1)[:16][None],
                                                     rounds=1)
     np.testing.assert_allclose(rows.numpy().T, plain[:, 0].numpy(), rtol=1e-6)
+
+
+def test_texel_channel_table_is_the_division():
+    """The e2e_atlas kernel's channel table (c / 255 for c in 0..255, made
+    once per device by the wrapper) equals the plain version's division
+    (``vm.div``) and numpy's float32 c / 255, bit for bit."""
+    table = inkernel_texel_probe.channel_table(CPU)
+    c = torch.arange(256, dtype=torch.float32)
+    assert table.dtype == torch.float32 and table.shape == (256,)
+    assert torch.equal(table.view(torch.int32), vm.div(c, 255.0).view(torch.int32))
+    want = np.arange(256, dtype=np.float32) / np.float32(255.0)
+    np.testing.assert_array_equal(table.numpy().view(np.uint32), want.view(np.uint32))
+    assert inkernel_texel_probe.channel_table("cpu") is table  # made once per device
 
 
 # -- body_probe ----------------------------------------------------------

@@ -319,6 +319,30 @@ def test_flash2_mm_elem_matches_tool(tools, monkeypatch):
     np.testing.assert_array_equal(got[~hit, 1], 0.0)
 
 
+@pytest.mark.parametrize("case", list(flash2_probe.TIE_CASES) + ["tool"])
+def test_flash2_mm_elem_keyed_winner_matches_plain(case):
+    """The kernel's keyed winner (the least ``(t bits, rep, triangle)`` key
+    over triangles and reps), replayed on the host, equals the plain
+    version on tie-heavy inputs: duplicated triangle columns, rows with no
+    hit, all triangles equal, and the tool's inputs; each over the tool's
+    16 identical reps, at g = 97 (a ragged last tile in the kernel)."""
+    g = 97
+    if case == "tool":
+        lhs, rhs = flash2_probe.make_mm_inputs(CPU, cols=4 * g, rows=MM_R)
+    else:
+        lhs, rhs = flash2_probe.make_tie_inputs(case, CPU, rows=MM_R, g=g)
+    want = flash2_probe.mm_elem_plain(lhs, rhs)
+    got = flash2_probe.mm_elem_keyed(lhs, rhs)
+    assert torch.equal(got, want)
+    hit = want[:, 0] < 1e38
+    assert hit.any()
+    if case == "no_hit_rows":
+        assert not hit[1::2].any() and torch.equal(want[~hit, 1], torch.zeros(int((~hit).sum())))
+    if case in ("dup_columns", "all_equal"):  # every winner is the lower of equal triangles
+        assert torch.equal(want[hit, 1] % (2 if case == "dup_columns" else g),
+                           torch.zeros(int(hit.sum())))
+
+
 @pytest.fixture(scope="module")
 def jax_teapot_planes():
     """Scene 3's planes as the tool builds them (the JAX package's teapot,

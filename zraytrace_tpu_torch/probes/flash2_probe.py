@@ -17,9 +17,11 @@ triangles in ``NG = 4`` column blocks, ``REPS = 16``:
   lowest triangle on ties, a strict ``<`` winner across reps with id
   ``lane + rep``), ``(512, 2)`` ``[t_best, i_best]``;
 - ``library_mm``: ``torch.matmul(lhs, rhs)`` in f32 (TF32 off), one
-  product; ``library_mm_tf32``: the same with TF32 allowed for that call
-  alone, a precision the port does not use, with its max |diff| from f32.
-  Both are timed only.
+  product, all 6,400 columns written (``mm`` writes 128 and a checksum);
+  ``library_mm128`` the same with ``K = 128``; ``library_mm_tf32``:
+  ``library_mm`` with TF32 allowed for that call alone, a precision the
+  port does not use, with its max |diff| from f32. All three are timed
+  only.
 
 Each product is summed over ``k`` in a fixed order, every multiply and
 add rounded separately, so kernel and plain version agree bit for bit.
@@ -55,9 +57,10 @@ from zraytrace_tpu_torch.probes import common
 from zraytrace_tpu_torch.probes.flash3_probe import chunk_min
 
 __all__ = ["VARIANTS", "MM_VARIANTS", "CULL_VARIANTS", "LAUNCHES", "CULL_LAUNCHES", "R", "G",
-           "NG", "K", "K128", "REPS", "RB", "N_RAYS", "mm", "mm_plain", "mm_elem",
-           "mm_elem_plain", "flash_cull", "flash_cull_plain", "make_mm_inputs", "cull_planes",
-           "cull_rays", "mm_flops", "mm_elem_flops", "cull_flops", "measure"]
+           "NG", "K", "K128", "REPS", "RB", "N_RAYS", "TIE_CASES", "mm", "mm_plain", "mm_elem",
+           "mm_elem_plain", "mm_elem_keyed", "flash_cull", "flash_cull_plain", "make_mm_inputs",
+           "make_tie_inputs", "cull_planes", "cull_rays", "mm_flops", "mm_elem_flops",
+           "cull_flops", "measure"]
 
 R = 512
 G = 1600
@@ -69,7 +72,9 @@ RB = 512
 N_RAYS = 1 << 16
 OUT_COLS = 128
 BIG = 3.4e38
-MM_VARIANTS = ("mm", "mm128", "mm_elem", "library_mm", "library_mm_tf32")
+MM_VARIANTS = ("mm", "mm128", "mm_elem", "library_mm", "library_mm128", "library_mm_tf32")
+# tie-heavy inputs of mm_elem (``make_tie_inputs``)
+TIE_CASES = ("dup_columns", "no_hit_rows", "all_equal")
 CULL_VARIANTS = ("cullwhen_into", "cullwhen_away", "flash1_into", "flash1_away")
 VARIANTS = MM_VARIANTS + CULL_VARIANTS
 
@@ -118,14 +123,22 @@ def mm_plain(lhs: torch.Tensor, rhs: torch.Tensor, reps: int = REPS):
     return acc, common.as_int32_bits(chk)
 
 
-def mm_elem_plain(lhs: torch.Tensor, rhs: torch.Tensor, reps: int = REPS) -> torch.Tensor:
-    """The tool's intersect block, ``(n, 2)`` f32 ``[t_best, i_best]``."""
+def _pair_test(lhs: torch.Tensor, rhs: torch.Tensor):
+    """Each ray and triangle's ``t`` and hit test, ``(n, g)`` each: the
+    product's four column blocks as det, un, vn, tn, ``1/det`` where
+    ``|det| > 1e-12``."""
     g = rhs.shape[1] // 4
     p = _product(lhs, rhs)
     det, un, vn, tn = (p[:, b * g:(b + 1) * g] for b in range(4))
     inv = 1.0 / torch.where(det.abs() > 1e-12, det, 1.0)
     u, v, t = un * inv, vn * inv, tn * inv
-    hit = (det >= 1e-6) & (t > 1e-3) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+    return t, (det >= 1e-6) & (t > 1e-3) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+
+
+def mm_elem_plain(lhs: torch.Tensor, rhs: torch.Tensor, reps: int = REPS) -> torch.Tensor:
+    """The tool's intersect block, ``(n, 2)`` f32 ``[t_best, i_best]``."""
+    t, hit = _pair_test(lhs, rhs)
+    g = t.shape[1]
     t = torch.where(hit, t, BIG)
     tc = t.amin(dim=1)
     ids = torch.arange(g, device=lhs.device)
@@ -136,6 +149,29 @@ def mm_elem_plain(lhs: torch.Tensor, rhs: torch.Tensor, reps: int = REPS) -> tor
         better = tc < t_best
         t_best = torch.where(better, tc, t_best)
         i_best = torch.where(better, lane + rep, i_best)
+    return torch.stack([t_best, i_best.to(torch.float32)], dim=-1)
+
+
+_NO_KEY = (1 << 63) - 1  # above every key: the kernel's all-ones key
+
+
+def mm_elem_keyed(lhs: torch.Tensor, rhs: torch.Tensor, reps: int = REPS) -> torch.Tensor:
+    """The kernel's winner, on the host: every hit with t below 3.4e38 as
+    the key ``(float bits of t) << 32 | rep << 16 | triangle``, the least
+    key over triangles and reps (the kernel's atomicMin), decoded into
+    ``[t, triangle + rep]``, a row without a key into ``[3.4e38, 0]``.
+    Equal to ``mm_elem_plain`` by construction; the tests hold it so."""
+    t, hit = _pair_test(lhs, rhs)
+    hit = hit & (t < BIG)
+    bits = t.view(torch.int32).to(torch.int64)  # t > 1e-3 on a hit: the sign bit is clear
+    tri = torch.arange(t.shape[1], device=lhs.device)
+    best = torch.full((lhs.shape[0],), _NO_KEY, dtype=torch.int64, device=lhs.device)
+    for rep in range(reps):
+        keys = torch.where(hit, bits << 32 | rep << 16 | tri, _NO_KEY)
+        best = torch.minimum(best, keys.amin(dim=1))
+    none = best == _NO_KEY
+    t_best = torch.where(none, BIG, (best >> 32).to(torch.int32).view(torch.float32))
+    i_best = torch.where(none, 0, (best >> 16 & 0xFFFF) + (best & 0xFFFF))
     return torch.stack([t_best, i_best.to(torch.float32)], dim=-1)
 
 
@@ -177,19 +213,22 @@ def mm(lhs: torch.Tensor, rhs: torch.Tensor, reps: int = REPS):
 
 
 def mm_elem(lhs: torch.Tensor, rhs: torch.Tensor, reps: int = REPS) -> torch.Tensor:
-    """One launch of the intersect-block kernel on CUDA tensors; the plain
-    version on CPU tensors."""
+    """One launch of the intersect-block kernel on CUDA tensors (its
+    keyed winner, then the keys' decoding); the plain version on CPU
+    tensors."""
     global LAUNCHES
     _check_mm(lhs, rhs, elem=True)
     dev = _device_of(lhs, rhs)
     if dev.type == "cpu":
         return mm_elem_plain(lhs, rhs, reps)
     lhs, rhs = lhs.contiguous(), rhs.contiguous()
-    out = torch.empty((lhs.shape[0], 2), dtype=torch.float32, device=dev)
-    fn = common.bind("probe_mm", "zr_probe_mm_elem_launch", [_P, _P, _P, _I, _I, _I, _I, _P])
+    n = lhs.shape[0]
+    keys = torch.empty((n,), dtype=torch.int64, device=dev)
+    out = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    fn = common.bind("probe_mm", "zr_probe_mm_elem_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _P])
     with torch.cuda.device(dev):
-        common.launch("probe_mm", fn, lhs.data_ptr(), rhs.data_ptr(), out.data_ptr(),
-                      lhs.shape[0], rhs.shape[1] // 4, reps, 0)
+        common.launch("probe_mm", fn, lhs.data_ptr(), rhs.data_ptr(), keys.data_ptr(),
+                      out.data_ptr(), n, rhs.shape[1] // 4, reps, 0)
     LAUNCHES += 1
     return out
 
@@ -274,6 +313,27 @@ def make_mm_inputs(device, k: int = K, cols: int = NG * G, rows: int = R, seed: 
     return torch.from_numpy(lhs).to(device), torch.from_numpy(rhs).to(device)
 
 
+def make_tie_inputs(case: str, device, rows: int = 64, g: int = 96):
+    """(lhs, rhs) of mm_elem with many ties, from ``make_mm_inputs`` with
+    the u and v blocks scaled by 0.4 so that most pairs hit:
+    ``dup_columns`` copies each even triangle's four columns to the odd
+    one after it (equal t, the lower triangle wins); ``no_hit_rows``
+    negates every other lhs row as well (det < 0: rows with no hit);
+    ``all_equal`` gives every triangle the first one's columns."""
+    if case not in TIE_CASES:
+        raise ValueError(f"unknown case {case!r}; choose from {TIE_CASES}")
+    lhs, rhs = make_mm_inputs("cpu", cols=4 * g, rows=rows)
+    blocks = rhs.reshape(K, 4, g)
+    blocks[:, 1:3] *= 0.4
+    if case == "dup_columns":
+        blocks[:, :, 1::2] = blocks[:, :, 0:g - g % 2:2]
+    elif case == "no_hit_rows":
+        lhs[1::2] = -lhs[1::2]
+    else:
+        blocks[:, :, 1:] = blocks[:, :, :1]
+    return lhs.to(device), blocks.reshape(K, 4 * g).contiguous().to(device)
+
+
 def cull_planes(device):
     """The teapot scene's triangles in BVH order, packed (``TriPlanes``)."""
     from zraytrace_tpu_torch.geometry.bvh import build_tri_bvh
@@ -324,7 +384,7 @@ def _mm_rows(device, variants) -> list[dict]:
     for name in variants:
         row = dict(probe="flash2_probe", variant=name, device=str(device), ms=None, per=None,
                    plain_ms=None, max_abs_err=None)
-        k = K128 if name == "mm128" else K
+        k = K128 if name in ("mm128", "library_mm128") else K
         lhs, rhs = make_mm_inputs(device, k)
         if name.startswith("library"):
             if not cuda:
@@ -374,6 +434,8 @@ def _mm_rows(device, variants) -> list[dict]:
 def _cull_rows(device, variants) -> list[dict]:
     from zraytrace_tpu_torch.ops import flash_intersect as fi
 
+    if not variants:
+        return []
     rows = []
     cuda = device.type == "cuda"
     tp = cull_planes(device)

@@ -17,11 +17,13 @@ shapes:
   at ``(8192, 128)`` lanes, the bounce kernel's lane count at 1000x1000;
 - ``library_gather``: the library row, in place of the tool's XLA row
   gather: one PyTorch call ``atlas[ids]`` on the ``(2^19, 3)`` f32 atlas
-  for the same K x 8,192 texels (timed only, on the card).
+  for the same K x 8,192 texels (timed only, on the card); the
+  ``e2e_atlas_1m`` row carries the same call's time at its 1M lanes.
 
 The kernel and its note (what bounds it, why the atlas is not staged in
-shared memory) are ``csrc/probe_texel.cu``. ``texel_gather`` launches it
-for CUDA tensors and runs ``texel_gather_plain`` for CPU tensors.
+shared memory, e2e_atlas's lanes over rounds and channel table) are
+``csrc/probe_texel.cu``. ``texel_gather`` launches it for CUDA tensors
+and runs ``texel_gather_plain`` for CPU tensors.
 
     python -m zraytrace_tpu_torch.probes.inkernel_texel_probe [--cpu] [variant ...]
 """
@@ -38,8 +40,8 @@ from zraytrace_tpu_torch import vecmath as vm
 from zraytrace_tpu_torch.probes import common
 
 __all__ = ["VARIANTS", "SHAPES", "LAUNCHES", "K", "F_ATLAS", "texel_gather",
-           "texel_gather_plain", "make_inputs", "numpy_e2e", "library_gather", "measure",
-           "e2e_ops"]
+           "texel_gather_plain", "channel_table", "make_inputs", "numpy_e2e", "library_gather",
+           "measure", "e2e_ops"]
 
 L = 128
 K = 32  # rounds per launch, the ids rotated by the round
@@ -56,6 +58,20 @@ VARIANTS = tuple(SHAPES) + ("library_gather",)
 
 # Kernel launches made by ``texel_gather`` in this process.
 LAUNCHES = 0
+
+_CHANNEL_TABLES: dict = {}
+
+
+def channel_table(device) -> torch.Tensor:
+    """``(256,)`` f32: ``c / 255`` for each channel value c, divided as the
+    plain version divides (``vm.div``, correctly rounded), so a lookup is
+    bit-equal to the division. Made once per device; the e2e_atlas kernel
+    reads it in place of its three divisions per texel."""
+    device = torch.device(device)
+    if device not in _CHANNEL_TABLES:
+        _CHANNEL_TABLES[device] = vm.div(torch.arange(256, dtype=torch.float32, device=device),
+                                         255.0)
+    return _CHANNEL_TABLES[device]
 
 
 def texel_gather_plain(mode: str, table: torch.Tensor, idx: torch.Tensor | None,
@@ -110,11 +126,13 @@ def texel_gather(mode: str, table: torch.Tensor, idx: torch.Tensor | None,
     shape = (3, rows, cols) if mode == "e2e_atlas" else (rows, cols)
     out = torch.empty(shape, dtype=torch.float32, device=table.device)
     _P, _I = ctypes.c_void_p, ctypes.c_int
-    fn = common.bind("probe_texel", "zr_probe_texel_launch", [_I, _P, _P, _P, _I, _I, _I, _I, _P])
+    chan = channel_table(table.device).data_ptr() if mode == "e2e_atlas" else None
+    fn = common.bind("probe_texel", "zr_probe_texel_launch",
+                     [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P])
     with torch.cuda.device(table.device):
         common.launch("probe_texel", fn, MODES.index(mode), table.data_ptr(),
-                      None if idx is None else idx.data_ptr(), out.data_ptr(), rows, width,
-                      cols, rounds)
+                      None if idx is None else idx.data_ptr(), chan, out.data_ptr(), rows,
+                      width, cols, rounds)
     LAUNCHES += 1
     return out
 
@@ -153,17 +171,17 @@ def library_gather(atlas_rgb: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 def e2e_ops(n_texels: int) -> tuple[int, int]:
     """(FP32, int32) operations of e2e_atlas for ``n_texels`` fetches, from
-    csrc/probe_texel.cu: per fetch three int-to-float conversions, three
-    divisions and three adds (FP32), and the rotation's add and mask and
-    the unpacking's three shifts and three masks (int32)."""
-    return 9 * n_texels, 8 * n_texels
+    csrc/probe_texel.cu: per fetch three adds (FP32; the channel values are
+    looked up, not divided), and the rotation's add and mask and the
+    unpacking's three shifts and three masks (int32)."""
+    return 3 * n_texels, 8 * n_texels
 
 
 def measure(device, variants=VARIANTS) -> list[dict]:
     """One row per variant (see ``probes.common``): kernel against plain
     bit for bit (separately rounded adds, multiplies and divisions), and
     e2e_atlas against numpy at rtol 1e-6; the kernel timed as a CUDA graph
-    of launches. The e2e_atlas row carries ``library_ms``, the library
+    of launches. The e2e_atlas rows carry ``library_ms``, the library
     gather's time for the same texels."""
     rows = []
     for name in variants:
@@ -186,17 +204,19 @@ def measure(device, variants=VARIANTS) -> list[dict]:
                 np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-6)
             row["ms"] = common.time_graph(lambda: texel_gather(mode, table, idx), device)
             row["per"] = row["ms"] / (K * n) * 1e6
-            if name == "e2e_atlas":
+            if mode == "e2e_atlas":
                 rgb = torch.stack([((table >> s) & 255).to(torch.float32) / 255.0
                                    for s in (16, 8, 0)], dim=1)
                 ids = ((idx.reshape(1, -1) + torch.arange(K, device=device)[:, None])
                        & (table.shape[0] - 1)).long()
                 row["library_ms"] = common.time_graph(lambda: library_gather(rgb, ids), device)
                 row["touched_texels"] = int(torch.unique(ids).numel())
-                rows.append(dict(probe="inkernel_texel_probe", variant="library_gather",
-                                 device=str(device), plain_ms=None, ms=row["library_ms"],
-                                 per=row["library_ms"] / ids.numel() * 1e6, unit="ns/texel",
-                                 max_abs_err=None))
+                if name == "e2e_atlas":
+                    rows.append(dict(probe="inkernel_texel_probe", variant="library_gather",
+                                     device=str(device), plain_ms=None, ms=row["library_ms"],
+                                     per=row["library_ms"] / ids.numel() * 1e6,
+                                     unit="ns/texel", max_abs_err=None))
+                del rgb, ids
         rows.append(row)
     return rows
 
