@@ -262,6 +262,9 @@ FLASH_R, FLASH_NCHUNK, FLASH_REPS = 16, 3, 2
 
 @pytest.mark.parametrize("mode", flash3_probe.MODES)
 def test_flash3_mode_matches_tool(tools, monkeypatch, mode):
+    """Each layout against the tool's run of the same mode; ``tile``, a
+    layout the TPU tool does not have, against its ``base`` run, which
+    computes the same sums."""
     tool = tools["flash3_probe"]
     monkeypatch.setattr(tool, "R", FLASH_R)
     monkeypatch.setattr(tool, "NCHUNK", FLASH_NCHUNK)
@@ -273,7 +276,7 @@ def test_flash3_mode_matches_tool(tools, monkeypatch, mode):
         return 0.0
 
     monkeypatch.setattr(tool, "_force", capture)
-    tool.run(mode)
+    tool.run("base" if mode == "tile" else mode)
     want = seen[0]
     planes, o, d = flash3_probe.make_inputs(CPU, FLASH_R, FLASH_NCHUNK)
     got = flash3_probe.flash_body(mode, planes, o, d, reps=FLASH_REPS).numpy()
@@ -281,6 +284,22 @@ def test_flash3_mode_matches_tool(tools, monkeypatch, mode):
     assert hit.any() and (~hit).any()  # some rays hit, some miss (sum inf)
     np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
     np.testing.assert_allclose(got[hit], want[hit], rtol=1e-5)
+
+
+@pytest.mark.parametrize("reps", [1, 2])
+@pytest.mark.parametrize("nchunk", [1, 3])
+@pytest.mark.parametrize("rays", [1, 37, 130])
+def test_flash3_tile_twin_matches_plain(rays, nchunk, reps):
+    """``tile``'s schedule on the host (rays padded to whole warps of 4,
+    each lane's partial minimum per rep, merged, then summed) equals the
+    plain version bit for bit, at ray counts that are not a multiple of
+    the warp's 4 rays, on 1 and 3 chunks, over 1 and 2 reps."""
+    planes, o, d = flash3_probe.make_inputs(CPU, rays, nchunk)
+    got = flash3_probe.flash_body_tile_twin(planes, o, d, reps=reps)
+    want = flash3_probe.flash_body_plain(planes, o, d, reps=reps)
+    assert got.shape == (rays,) and torch.equal(got, want)
+    if rays > 1:
+        assert bool((want < 1e38).any()) and bool((want >= 1e38).any())
 
 
 # -- the modules ---------------------------------------------------------

@@ -356,7 +356,18 @@ def jax_teapot_planes():
     return pack_tri_planes(sc.tri_a, sc.tri_b, sc.tri_c, order=order), np.asarray(order)
 
 
-@pytest.mark.parametrize("rays", ["into", "away"])
+def _one_cull_block(rays: str):
+    """512 rays of ``flash2_probe.cull_rays``' set ``rays``: the first
+    block, or for ``camera`` the block of pixel rows 130-131, which
+    reaches 12 of the 50 chunks."""
+    rb = flash2_probe.RB
+    if rays == "camera":
+        o, d = flash2_probe.cull_rays(CPU, n=8 * rb)[rays]
+        return o[5 * rb:6 * rb], d[5 * rb:6 * rb]
+    return flash2_probe.cull_rays(CPU, n=rb)[rays]
+
+
+@pytest.mark.parametrize("rays", flash2_probe.CULL_RAY_SETS)
 def test_flash2_cullwhen_matches_tool(tools, monkeypatch, jax_teapot_planes, rays):
     """The tool's block-culled kernel, grid 1 (512 rays), against the
     port's plain version on the same planes and rays; the port packs the
@@ -369,7 +380,7 @@ def test_flash2_cullwhen_matches_tool(tools, monkeypatch, jax_teapot_planes, ray
     assert tp.planes.shape == planes.shape == (18, 50, 128) and bounds.shape == (50, 8)
     np.testing.assert_array_equal(tp.bounds.numpy(), bounds)
     np.testing.assert_array_equal(tp.planes[17].numpy().reshape(-1)[:order.size], order)
-    o, d = flash2_probe.cull_rays(CPU, n=flash2_probe.RB)[rays]
+    o, d = _one_cull_block(rays)
     want = run(jnp.asarray(planes), jnp.asarray(bounds), jnp.asarray(o.numpy()),
                jnp.asarray(d.numpy()), grid=(1,),
                out_shape=jax.ShapeDtypeStruct((flash2_probe.RB, 8), jnp.float32))[:, 0]
@@ -379,5 +390,23 @@ def test_flash2_cullwhen_matches_tool(tools, monkeypatch, jax_teapot_planes, ray
     np.testing.assert_allclose(t.numpy()[hit], want[hit], rtol=1e-5)
     if rays == "into":
         assert hit.sum() > 20 and visits.tolist() == [50]
+    elif rays == "camera":
+        assert hit.sum() > 100 and visits.tolist() == [12]
     else:
         assert not hit.any() and visits.tolist() == [0]
+
+
+@pytest.mark.parametrize("rays", flash2_probe.CULL_RAY_SETS)
+def test_flash2_cull_split_matches_plain(rays):
+    """The kernel's schedule on the host (each reached chunk's triangles
+    in 8 slices of 16, the slices' minima merged) equals the plain version
+    in t and visits, bit for bit, on 8 blocks of each ray set; the camera
+    set's blocks reach none, all or some of the 50 chunks."""
+    tp = flash2_probe.cull_planes(CPU)
+    o, d = flash2_probe.cull_rays(CPU, n=8 * flash2_probe.RB)[rays]
+    t, visits = flash2_probe.flash_cull_split(tp.planes, tp.bounds, o, d)
+    want_t, want_v = flash2_probe.flash_cull_plain(tp.planes, tp.bounds, o, d)
+    assert torch.equal(t, want_t) and torch.equal(visits, want_v)
+    if rays == "camera":
+        assert visits.tolist() == [0, 0, 0, 0, 50, 12, 12, 12]
+        assert bool((t[:4 * flash2_probe.RB] >= 1e38).all()) and bool((t < 1e38).any())

@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -66,7 +67,8 @@ def _compile(stem: str, compiler: str, flags, sources, inputs) -> dict:
     if out.exists():
         log = log_path.read_text() if log_path.exists() else ""
         return dict(path=out, seconds=0.0, cached=True, log=log)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+    # one name per thread: two checkouts may hold the same sources and build at once
+    tmp = out.with_suffix(f".tmp{os.getpid()}-{threading.get_ident()}.so")
     cmd = [compiler, *flags, "-o", str(tmp), *map(str, inputs)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)

@@ -1,5 +1,7 @@
 """The probes' shared harness: device choice, variant selection, the
-card line, CUDA-event timing and the kernel/plain comparison.
+card line, CUDA-event timing, the kernel/plain comparison, and the
+builds and alternating timing of a measurement beside another checkout
+(``mesh_ab``, ``flash_ab``).
 
 Each probe module (``rng_probe``, ``inkernel_texel_probe``,
 ``body_probe``, ``flash3_probe``, ``pallas_probe``, ``gather_probe3``,
@@ -24,14 +26,19 @@ what was checked); a row with ``ms`` alone is a library call's.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import subprocess
 import time
+from pathlib import Path
 
 import torch
 
-__all__ = ["ProbeMismatch", "device_from_argv", "select", "card_line", "time_ms", "time_graph",
-           "bind", "launch", "compare", "format_row", "main_for", "as_int32_bits"]
+__all__ = ["ProbeMismatch", "THIS", "device_from_argv", "select", "card_line", "time_ms",
+           "time_graph", "time_graph_calls", "build_checkouts", "ab_rounds", "bind", "launch",
+           "compare", "format_row", "main_for", "as_int32_bits"]
+
+THIS = "this"  # the name of this checkout's build beside others
 
 
 class ProbeMismatch(RuntimeError):
@@ -136,6 +143,42 @@ def time_graph_calls(fns, device: torch.device, replays: int = 20) -> float:
     end.record()
     torch.cuda.synchronize(device)
     return start.elapsed_time(end) / (replays * len(fns))
+
+
+def build_checkouts(sources, parents=()) -> dict[str, Path]:
+    """``{build name: csrc directory}``: each checkout in ``parents`` (a
+    root holding ``zraytrace_tpu_torch/csrc``), named by its directory,
+    then this one as ``THIS``. Every source is compiled for every
+    checkout, one nvcc each, all at once, and each kernel's registers and
+    spills from ``-Xptxas -v`` are printed as ``[ptxas] <build> <source>
+    <kernel>: ...`` lines."""
+    from zraytrace_tpu_torch.ops.build import CSRC, build
+
+    jobs = {Path(p).name: Path(p).resolve() / "zraytrace_tpu_torch" / "csrc" for p in parents}
+    jobs[THIS] = CSRC
+    with concurrent.futures.ThreadPoolExecutor(len(jobs) * len(sources)) as pool:
+        futures = {(name, src): pool.submit(build, src, csrc)
+                   for name, csrc in jobs.items() for src in sources}
+        for (name, src), f in futures.items():
+            entry = None
+            for line in f.result()["log"].splitlines():
+                if "entry function" in line:
+                    entry = line.split("'")[1] if "'" in line else line.strip()
+                elif "registers" in line or "spill" in line:
+                    print(f"[ptxas] {name} {src} {entry}: {line.strip()}", flush=True)
+    return jobs
+
+
+def ab_rounds(timers: dict) -> dict[str, list[float]]:
+    """``{name: [ms, ms]}``: each timer (a function of no arguments that
+    returns milliseconds) run once in the order given and once in reverse
+    (A B, B A), so that a drift of the card's clock over the run weighs on
+    every build alike."""
+    times = {name: [] for name in timers}
+    for order in (list(timers), list(timers)[::-1]):
+        for name in order:
+            times[name].append(timers[name]())
+    return times
 
 
 def bind(source: str, symbol: str, argtypes) -> ctypes._CFuncPtr:

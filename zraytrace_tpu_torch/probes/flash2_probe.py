@@ -32,10 +32,16 @@ The block cull (``csrc/probe_flash_cull.cu``): 65,536 rays in blocks of
 its origins and directions, the tool's conservative slab reach of each
 chunk from that range, and the flash body on every ray of a block that
 reaches the chunk: each ray's closest t and each block's chunk visits.
+The kernel splits each reached chunk's 128 triangles over a cluster of
+``CULL_SHARES`` CTAs whose minima meet in distributed shared memory
+(``flash_cull_split`` is its schedule on the host).
 ``cullwhen_into`` takes the tool's rays from random points in [-2, 2)^3 in
 random directions, ``cullwhen_away`` the same moved by (0, 100, 0) and
-aimed at +y. ``flash1_into`` and ``flash1_away`` time the port's per-ray
-cull flash kernel (``ops/flash_intersect.flash_intersect_triangles``,
+aimed at +y, ``cullwhen_camera`` scene 3's camera rays at 256x256, one
+sample, in blocks of 512 pixels (two rows), so that blocks reach some
+chunks and not others (the tool's sets reach all or none).
+``flash1_into``, ``flash1_away`` and ``flash1_camera`` time the port's
+per-ray cull flash kernel (``ops/flash_intersect.flash_intersect_triangles``,
 the tool's ``probe_flash1`` / ``probe_cull``) on the same rays, whose t
 must equal the block cull's.
 
@@ -57,10 +63,10 @@ from zraytrace_tpu_torch.probes import common
 from zraytrace_tpu_torch.probes.flash3_probe import chunk_min
 
 __all__ = ["VARIANTS", "MM_VARIANTS", "CULL_VARIANTS", "LAUNCHES", "CULL_LAUNCHES", "R", "G",
-           "NG", "K", "K128", "REPS", "RB", "N_RAYS", "TIE_CASES", "mm", "mm_plain", "mm_elem",
-           "mm_elem_plain", "mm_elem_keyed", "flash_cull", "flash_cull_plain", "make_mm_inputs",
-           "make_tie_inputs", "cull_planes", "cull_rays", "mm_flops", "mm_elem_flops",
-           "cull_flops", "measure"]
+           "NG", "K", "K128", "REPS", "RB", "N_RAYS", "TIE_CASES", "CULL_SHARES", "CULL_RAY_SETS",
+           "mm", "mm_plain", "mm_elem", "mm_elem_plain", "mm_elem_keyed", "flash_cull",
+           "flash_cull_plain", "flash_cull_split", "make_mm_inputs", "make_tie_inputs",
+           "cull_planes", "cull_rays", "mm_flops", "mm_elem_flops", "cull_flops", "measure"]
 
 R = 512
 G = 1600
@@ -70,12 +76,15 @@ K128 = 128
 REPS = 16
 RB = 512
 N_RAYS = 1 << 16
+CULL_SHARES = 8  # CTAs per ray block: each tests 16 triangles of every reached chunk
+CAMERA_WIDTH = 256  # the camera set's image width: a block of 512 rays is two rows
 OUT_COLS = 128
 BIG = 3.4e38
 MM_VARIANTS = ("mm", "mm128", "mm_elem", "library_mm", "library_mm128", "library_mm_tf32")
 # tie-heavy inputs of mm_elem (``make_tie_inputs``)
 TIE_CASES = ("dup_columns", "no_hit_rows", "all_equal")
-CULL_VARIANTS = ("cullwhen_into", "cullwhen_away", "flash1_into", "flash1_away")
+CULL_RAY_SETS = ("into", "away", "camera")
+CULL_VARIANTS = tuple(f"{k}_{w}" for k in ("cullwhen", "flash1") for w in CULL_RAY_SETS)
 VARIANTS = MM_VARIANTS + CULL_VARIANTS
 
 # Kernel launches made by ``mm`` and ``mm_elem`` in this process.
@@ -277,6 +286,29 @@ def flash_cull_plain(planes: torch.Tensor, bounds: torch.Tensor, o: torch.Tensor
     return t_best, reach.sum(dim=1).to(torch.int32)
 
 
+def flash_cull_split(planes: torch.Tensor, bounds: torch.Tensor, o: torch.Tensor,
+                     d: torch.Tensor):
+    """The kernel's schedule on the host: per block of ``RB`` rays the
+    reached chunks; share ``k`` of ``CULL_SHARES`` takes the 16 triangles
+    ``16k`` onward of each; each share's minimum per ray over its
+    triangles from BIG; the shares' minima merged. Returns what
+    ``flash_cull_plain`` does, bit for bit (a minimum is exact in any
+    order; the tests hold it so)."""
+    reach = _block_reach(bounds, o, d, RB)
+    t_best = torch.full((o.shape[0],), BIG, dtype=torch.float32, device=o.device)
+    width = planes.shape[2] // CULL_SHARES
+    for b in range(reach.shape[0]):
+        rays = slice(b * RB, (b + 1) * RB)
+        ray = (*o[rays].unbind(1), *d[rays].unbind(1))
+        reached = planes[:, torch.nonzero(reach[b])[:, 0]]
+        parts = [torch.full((RB,), BIG, dtype=torch.float32, device=o.device)]
+        if reached.shape[1]:
+            parts += [chunk_min(ray, reached[:, :, k * width:(k + 1) * width])
+                      for k in range(CULL_SHARES)]
+        t_best[rays] = torch.stack(parts).amin(dim=0)
+    return t_best, reach.sum(dim=1).to(torch.int32)
+
+
 def flash_cull(planes: torch.Tensor, bounds: torch.Tensor, o: torch.Tensor, d: torch.Tensor):
     """One launch of the block-cull kernel on CUDA tensors (512 rays a
     block); the plain version on CPU tensors. ``planes`` ``(17+, C,
@@ -285,14 +317,17 @@ def flash_cull(planes: torch.Tensor, bounds: torch.Tensor, o: torch.Tensor, d: t
     global CULL_LAUNCHES
     c = planes.shape[1] if planes.dim() == 3 else -1
     if (planes.dim() != 3 or planes.shape[0] < 17 or planes.shape[2] != 128
-            or bounds.shape != (c, 8) or o.shape != d.shape or o.dim() != 2 or o.shape[1] != 3
-            or o.shape[0] % RB or any(x.dtype != torch.float32 for x in (planes, bounds, o, d))):
-        raise ValueError(f"planes (17+, C, 128), bounds (C, 8), o and d (n, 3) with n a "
-                         f"multiple of {RB}, all float32")
+            or bounds.shape != (c, 8) or o.shape != d.shape
+            or o.dim() != 2 or o.shape[1] != 3 or o.shape[0] % RB
+            or any(x.dtype != torch.float32 for x in (planes, bounds, o, d))):
+        raise ValueError(f"planes (17+, C, 128), bounds (C, 8), "
+                         f"o and d (n, 3) with n a multiple of {RB}, all float32")
     dev = _device_of(planes, bounds, o, d)
     if dev.type == "cpu":
         return flash_cull_plain(planes, bounds, o, d)
     planes, bounds, o, d = (x.contiguous() for x in (planes, bounds, o, d))
+    if planes.data_ptr() % 16:  # the kernel stages 16-byte rows with cp.async
+        planes = planes.clone()
     n = o.shape[0]
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     visits = torch.empty((n // RB,), dtype=torch.int32, device=dev)
@@ -345,8 +380,26 @@ def cull_planes(device):
     return pack_tri_planes(sc.tri_a, sc.tri_b, sc.tri_c, order=order).to(device)
 
 
+def _camera_rays(n: int = N_RAYS, seed: int = 0):
+    """(o, d) on the host: scene 3's camera rays at one jittered sample
+    per pixel of a ``CAMERA_WIDTH``-wide image, ``n / CAMERA_WIDTH`` rows
+    about its middle (all 256 rows at ``N_RAYS``), in pixel order."""
+    from zraytrace_tpu_torch.render import camera_rays
+    from zraytrace_tpu_torch.scenes import teapot_and_ball
+
+    height = N_RAYS // CAMERA_WIDTH
+    rows = n // CAMERA_WIDTH
+    first = (height - rows) // 2 * CAMERA_WIDTH
+    ids = torch.arange(first, first + n, dtype=torch.int32)
+    camera = teapot_and_ball("cpu").camera
+    o, d = camera_rays(camera, seed, ids, torch.zeros_like(ids), CAMERA_WIDTH, height)
+    return o.contiguous(), d.contiguous()
+
+
 def cull_rays(device, n: int = N_RAYS, seed: int = 0):
-    """{"into": (o, d), "away": (o, d)}: the tool's two ray sets."""
+    """{"into": (o, d), "away": (o, d), "camera": (o, d)}: the tool's two
+    ray sets and ``_camera_rays``' (``n`` a multiple of 512, at most
+    ``N_RAYS``)."""
     rng = np.random.default_rng(seed)
     o = (rng.random((n, 3)) * 4 - 2).astype(np.float32)
     d0 = rng.standard_normal((n, 3))
@@ -354,7 +407,8 @@ def cull_rays(device, n: int = N_RAYS, seed: int = 0):
     o_away = o + np.asarray([0.0, 100.0, 0.0], np.float32)
     d_away = np.broadcast_to(np.asarray([0.0, 1.0, 0.0], np.float32), (n, 3)).copy()
     t = lambda a: torch.from_numpy(a).to(device)
-    return {"into": (t(o), t(d)), "away": (t(o_away), t(d_away))}
+    return {"into": (t(o), t(d)), "away": (t(o_away), t(d_away)),
+            "camera": tuple(x.to(device) for x in _camera_rays(n, seed))}
 
 
 # FP32 operations, counted from csrc/probe_mm.cu and probe_flash_cull.cu

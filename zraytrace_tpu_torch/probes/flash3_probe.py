@@ -11,9 +11,15 @@ it stands for (``csrc/probe_flash_body.cu`` says how): ``base`` (one
 thread per ray, planes read per test, a sequential chunk scan),
 ``hoist`` (ray terms held once per thread), ``both`` (each chunk's planes
 staged in shared memory per block) and ``r8`` (four lanes per ray, eight
-rays per warp, a warp-shuffle min). Each runs at the tool's 512 rays and,
-as ``<mode>_32k``, at 32,768 rays (the margin kernel's camera-ray count
-in ``chip_smoke.py``), which fill the card.
+rays per warp, a warp-shuffle min); a fifth layout, ``tile``, is this
+card's own: four rays per warp in every lane's registers, the 32 lanes
+over each chunk's triangles, the chunks staged in shared memory with
+``cp.async``, each rep's partial minimums merged by warp shuffles
+(``flash_body_tile_twin`` is its schedule on the host). Each runs at the
+tool's 512 rays and, as ``<mode>_32k``, at 32,768 rays (the margin
+kernel's camera-ray count in ``chip_smoke.py``). At 32,768 rays ``base``,
+``hoist`` and ``both`` offer the 132 SMs about 8 warps each (of 64), ``r8``
+31 and ``tile`` 62.
 
 ``flash_body`` launches the kernel for CUDA tensors and runs
 ``flash_body_plain`` for CPU tensors.
@@ -32,7 +38,8 @@ import torch
 from zraytrace_tpu_torch.probes import common
 
 __all__ = ["MODES", "VARIANTS", "SHAPES", "LAUNCHES", "R", "R_FULL", "LANE", "NCHUNK", "REPS",
-           "flash_body", "flash_body_plain", "chunk_min", "make_inputs", "measure", "flash_ops"]
+           "TILE_RAYS", "TILE_LANES", "flash_body", "flash_body_plain", "flash_body_tile_twin",
+           "chunk_min", "make_inputs", "measure", "flash_ops", "rcp_check"]
 
 R = 512
 R_FULL = 32768
@@ -40,7 +47,9 @@ LANE = 128
 NCHUNK = 50  # teapot scale
 REPS = 8
 N_ROWS = 17
-MODES = ("base", "hoist", "both", "r8")
+MODES = ("base", "hoist", "both", "r8", "tile")
+TILE_RAYS = 4  # tile: rays per warp, held by every lane
+TILE_LANES = 32  # tile: lanes over each chunk's triangles
 # variant -> (mode, rays)
 SHAPES = {m: (m, R) for m in MODES}
 SHAPES.update({f"{m}_32k": (m, R_FULL) for m in MODES})
@@ -88,6 +97,27 @@ def flash_body_plain(planes: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
     return acc
 
 
+def flash_body_tile_twin(planes: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
+                         reps: int = REPS) -> torch.Tensor:
+    """``tile``'s schedule on the host: the rays padded to whole warps of
+    ``TILE_RAYS`` with copies of the last one; per rep each lane's partial
+    minimum over its triangles (lane ``l`` tests ``l, l + 32, ...`` of
+    every chunk) from the rep's start (0 once the sum is negative, which
+    it never is, else BIG), the lanes' partials merged, then added to the
+    sum. Equal to ``flash_body_plain`` bit for bit, as a minimum is exact
+    in any order; the tests hold it so."""
+    n = o.shape[0]
+    rows = torch.arange(-(-n // TILE_RAYS) * TILE_RAYS, device=o.device).clamp(max=n - 1)
+    ray = (*o[rows].unbind(1), *d[rows].unbind(1))
+    acc = torch.zeros(rows.shape[0], dtype=torch.float32, device=o.device)
+    for _ in range(reps):
+        start = torch.where(acc < 0.0, 0.0, BIG)
+        parts = [torch.minimum(start, chunk_min(ray, planes[:, :, lane::TILE_LANES]))
+                 for lane in range(TILE_LANES)]
+        acc = acc + torch.stack(parts).amin(dim=0)
+    return acc[:n]
+
+
 def flash_body(mode: str, planes: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
                reps: int = REPS) -> torch.Tensor:
     """One launch of the probe kernel in layout ``mode`` on CUDA tensors;
@@ -104,6 +134,8 @@ def flash_body(mode: str, planes: torch.Tensor, o: torch.Tensor, d: torch.Tensor
     if o.device.type != "cuda" or planes.device != o.device or d.device != o.device:
         raise ValueError("flash_body runs on cpu or cuda tensors, all on one device")
     planes, o, d = planes.contiguous(), o.contiguous(), d.contiguous()
+    if planes.data_ptr() % 16:  # tile stages 16-byte rows with cp.async
+        planes = planes.clone()
     out = torch.empty(o.shape[0], dtype=torch.float32, device=o.device)
     _P, _I = ctypes.c_void_p, ctypes.c_int
     fn = common.bind("probe_flash_body", "zr_probe_flash_body_launch",
@@ -114,6 +146,23 @@ def flash_body(mode: str, planes: torch.Tensor, o: torch.Tensor, d: torch.Tensor
                       reps)
     LAUNCHES += 1
     return out
+
+
+def rcp_check(device) -> tuple[int, int]:
+    """(floats on the fast path, of those the ones that differ): the
+    tile and cull kernels' branch-free reciprocal (``rcp_rn_fast`` in
+    ``csrc/flash_chunk.cuh``) against CUDA's correctly rounded
+    ``__frcp_rn`` on every one of the 2^32 float bit patterns, on the
+    card."""
+    if torch.device(device).type != "cuda":
+        raise ValueError("rcp_check runs on a CUDA device")
+    tally = torch.zeros(2, dtype=torch.int64, device=device)
+    fn = common.bind("probe_flash_body", "zr_probe_rcp_check",
+                     [ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p])
+    with torch.cuda.device(device):
+        for lo in (0, 1 << 31):
+            common.launch("probe_flash_body", fn, lo, 1 << 31, tally.data_ptr())
+    return tuple(tally.tolist())
 
 
 def make_inputs(device, rays: int = R, nchunk: int = NCHUNK, seed: int = 0):
@@ -142,7 +191,8 @@ def measure(device, variants=VARIANTS) -> list[dict]:
     """One row per variant (see ``probes.common``): every layout's sums
     equal the plain version's bit for bit (each t in the same operation
     order; a minimum is exact); ps per ray-triangle pair as the tool
-    printed it. The plain version runs once per ray count."""
+    printed it. The plain version runs once per ray count; the kernels are
+    timed as CUDA graphs of launches."""
     rows, plain_runs = [], {}
     for name in variants:
         mode, rays = SHAPES[name]
@@ -156,7 +206,8 @@ def measure(device, variants=VARIANTS) -> list[dict]:
         if device.type == "cuda":
             got = flash_body(mode, planes, o, d)
             row["max_abs_err"] = common.compare(f"flash3_probe {name}", got, plain)
-            _, row["ms"] = common.time_ms(lambda: flash_body(mode, planes, o, d), device)
+            row["ms"] = common.time_graph(lambda: flash_body(mode, planes, o, d), device,
+                                          launches=5)
             row["per"] = row["ms"] / (REPS * rays * NCHUNK * LANE) * 1e9
         rows.append(row)
     return rows

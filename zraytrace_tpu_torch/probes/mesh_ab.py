@@ -26,8 +26,9 @@ A sphere scene gets null mesh pointers. For a mesh scene, a build whose
 mesh mode walks the BVH (its source calls ``tri_bvh_winner``) is given the
 node and row tables, an older one the chunk planes and boxes, in the same
 argument slots. Each launch is timed with CUDA events (its outputs'
-zeroing included, microseconds); the builds run in the order given and
-then in reverse (A B, B A), and each time is the mean of the two rounds.
+zeroing included, microseconds); the builds run in the order given (the
+parents, then this checkout) and then in reverse (A B, B A), and each
+time is the mean of the two rounds.
 Each build's counters and slot sums are compared with this checkout's;
 on a mesh scene, for each pixel whose sum differs (the first 8), the
 plain wavefront retraces the pixel's samples on the card through the
@@ -53,7 +54,6 @@ identity fails.
 from __future__ import annotations
 
 import argparse
-import concurrent.futures
 import json
 import sys
 from pathlib import Path
@@ -62,11 +62,10 @@ import torch
 
 from zraytrace_tpu_torch.ops import bounce_kernel as bk
 from zraytrace_tpu_torch.ops import flash_intersect as fi
-from zraytrace_tpu_torch.ops.build import CSRC, build, load
+from zraytrace_tpu_torch.ops.build import load
 from zraytrace_tpu_torch.probes.bounds import bounce_flops, bound, nbytes
-from zraytrace_tpu_torch.probes.common import card_line
+from zraytrace_tpu_torch.probes.common import THIS, ab_rounds, build_checkouts, card_line
 
-THIS = "this"  # the name of this checkout's build
 SEED = 42
 # shape -> (scene index, "goat" for the goat-class scene or "bare3" for
 # scene 3 without its mesh; width, height, spp, depth)
@@ -131,24 +130,6 @@ class Build:
         return launch
 
 
-def builds(parents=()) -> list[Build]:
-    """This checkout's build, then each checkout in ``parents``, named by
-    its directory; compiled in parallel, with nvcc's register report."""
-    jobs = {THIS: CSRC}
-    for p in parents:
-        jobs[Path(p).name] = Path(p).resolve() / "zraytrace_tpu_torch" / "csrc"
-    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        futures = {name: pool.submit(build, "bounce_kernel", csrc) for name, csrc in jobs.items()}
-        for name, f in futures.items():
-            entry = None
-            for line in f.result()["log"].splitlines():
-                if "entry function" in line:
-                    entry = line.split("'")[1] if "'" in line else line.strip()
-                elif "registers" in line or "spill" in line:
-                    print(f"[ptxas] {name} {entry}: {line.strip()}", flush=True)
-    return [Build(name, csrc) for name, csrc in jobs.items()]
-
-
 def _timed(fn, dev, reps: int) -> float:
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize(dev)
@@ -197,7 +178,8 @@ def measure(dev, parents=(), shapes=None) -> list[dict]:
     from zraytrace_tpu_torch.render import flash_pack_cached
     from zraytrace_tpu_torch.scenes import build_scene, goat_class
 
-    all_builds = builds(parents)
+    all_builds = [Build(name, csrc)
+                  for name, csrc in build_checkouts(("bounce_kernel",), parents).items()]
     rows, scenes = [], {}
     for shape in shapes or SHAPES:
         index, w, h, spp, depth = SHAPES[shape]
@@ -215,10 +197,8 @@ def measure(dev, parents=(), shapes=None) -> list[dict]:
         scene, camera, tf = scenes[index]
         launch = {b.name: b.launcher(scene, camera, tf, w, h, spp, depth) for b in all_builds}
         outs = {b.name: launch[b.name]() for b in all_builds}  # warm-up, and the results
-        times = {b.name: [] for b in all_builds}
-        for order in (all_builds, all_builds[::-1]):
-            for b in order:
-                times[b.name].append(_timed(launch[b.name], dev, REPS.get(shape, 1)))
+        times = ab_rounds({b.name: lambda f=launch[b.name]: _timed(f, dev, REPS.get(shape, 1))
+                           for b in all_builds})
         ref_sums, ref_counters = (x.clone() for x in outs[THIS])
         for b in all_builds:
             sums, counters = (x.clone() for x in outs[b.name])
