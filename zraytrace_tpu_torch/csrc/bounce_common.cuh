@@ -14,6 +14,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "exact_math.cuh"
+
 namespace zr {
 
 constexpr float SPH_BIG = 3.4e38f;
@@ -74,10 +76,13 @@ __device__ __forceinline__ float4 sphere_row(const float* s) {
 // sphere_row rows. Returns the winning row, -1 on a miss; t_best receives
 // its t (SPH_BIG on a miss). The strict < keeps the first sphere on ties.
 // With COUNT, n_disc counts the tests whose discriminant is positive.
-template <bool COUNT>
+// With FAST, each root's square root is exact_math.cuh's sqrt_fast, which
+// clears ok where it may differ from sqrtf (the caller recomputes); the
+// overload without ok, the bounce kernel's, takes sqrtf.
+template <bool COUNT, bool FAST>
 __device__ __forceinline__ int sphere_winner(const float4* rows, int n_sph, V3 o, V3 d,
                                              float t_min, float& t_best,
-                                             unsigned long long& n_disc) {
+                                             unsigned long long& n_disc, bool& ok) {
   const float o_dot_d = dot3(o, d);
   const float o_sq = dot3(o, o);
   t_best = SPH_BIG;
@@ -89,7 +94,15 @@ __device__ __forceinline__ int sphere_winner(const float4* rows, int n_sph, V3 o
     const float cc = o_sq - 2.0f * dot3(o, c) + row.w;
     const float disc = half_b * half_b - cc;
     if (COUNT && disc > 0.0f) ++n_disc;
-    const float root = disc > 0.0f ? sqrtf(disc) : 0.0f;
+    float root;
+    if constexpr (FAST) {
+      bool in = true;
+      const float sq = sqrt_fast(disc, in);
+      ok &= in | !(disc > 0.0f);
+      root = disc > 0.0f ? sq : 0.0f;
+    } else {
+      root = disc > 0.0f ? sqrtf(disc) : 0.0f;
+    }
     const float t1 = -half_b - root;
     const float t2 = -half_b + root;
     const bool ok1 = (t1 > t_min) && (t1 < SPH_BIG);
@@ -101,6 +114,14 @@ __device__ __forceinline__ int sphere_winner(const float4* rows, int n_sph, V3 o
     }
   }
   return win;
+}
+
+template <bool COUNT>
+__device__ __forceinline__ int sphere_winner(const float4* rows, int n_sph, V3 o, V3 d,
+                                             float t_min, float& t_best,
+                                             unsigned long long& n_disc) {
+  bool ok = true;
+  return sphere_winner<COUNT, false>(rows, n_sph, o, d, t_min, t_best, n_disc, ok);
 }
 
 }  // namespace zr

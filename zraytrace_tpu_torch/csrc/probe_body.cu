@@ -18,18 +18,48 @@
 //   trig_libdevice  trig with CUDA's acosf/atan2f, the form the port's
 //              bounce kernel runs (csrc/bounce_kernel.cu).
 //
-// Design. One thread per lane; the planes are read once and written once
-// per launch and the B iterations run in registers, so pass_ prices the
-// loads and stores of a launch. The sphere, material and camera tables
-// sit in shared memory. K = 24 launches are timed as one CUDA graph.
-// PCG4D and the sphere winner are the bounce kernel's device functions
-// (bounce_common.cuh), so those lines time what the kernel runs.
+// Design. One thread per lane, 256 a block; the planes are read once and
+// written once per launch and the B iterations run in registers, so pass_
+// prices the loads and stores of a launch. The sphere, material and
+// camera tables sit in shared memory. K = 24 launches are timed as one
+// CUDA graph. PCG4D and the sphere winner are the bounce kernel's device
+// functions (bounce_common.cuh), so those lines time what the kernel runs.
 //
-// What bounds it: FP32, SFU (sqrt, sin, cos, division) and INT32
-// instructions, not bytes: a lane moves 128 bytes per launch against
-// ~370 FP32 and ~80 integer operations per iteration in `full`. The
-// random-normal state sends neighbouring lanes down different material
-// branches, which the tool's straight-line TPU body never paid for.
+// What bounds it: issue, not bytes (a lane moves 128 bytes per launch) and
+// not latency: `full`'s time grows with the lanes (0.027, 0.046 and 0.086
+// ms at half, once and twice the tool's, NVIDIA H100 80GB HBM3), so each
+// instruction counts. Written plainly, `full`'s loop issued ~1,030
+// instructions an iteration for ~405 operations: each IEEE division
+// (eleven) a reciprocal, five fused multiply-adds, an FCHK and a branch
+// around a called slow path inside a convergence barrier; each square
+// root (six, and the winner's seven) and reciprocal the same around an
+// exponent test; sinf and cosf of one angle two reductions through the
+// conversion pipe with their Payne-Hanek branches; pixel // width and %
+// width an integer division rebuilt in every iteration. This design
+// (~920 an iteration, 64 registers, every lane resident):
+// - takes those operations from exact_math.cuh, the same instructions
+//   with a range test in place of each branch, the winner's square roots
+//   too (sphere_winner<..., FAST>); the tests of a whole iteration meet in
+//   one flag (`&=`, so that it stays a predicate) and one branch, taken
+//   where a lane's flag is false, to a called copy of the body built from
+//   the library functions (body_lib) that recomputes the iteration from
+//   its inputs; a flag the lane's material leaves unread (the dielectric's
+//   Schlick division, 0 / 2 on every Lambertian and metal hit) does not
+//   count;
+// - shares one refined reciprocal between the normal's three divisions
+//   by the radius, and makes those of the camera's width and height once
+//   per thread;
+// - takes sinf and cosf of the Lambertian angle from one reduction;
+// - divides by the width (and, for mats, by the material count) with a
+//   multiply-high by a reciprocal the host computes once per launch, one
+//   quotient for both the floor division and the modulo.
+// trig's and intdiv's and mats' operands do not change between
+// iterations, so nvcc computes them once per launch: those lines price a
+// launch, not the slice. trig keeps the library's division and square
+// root in its acos and atan2 and takes sin and cos from exact_math.cuh's
+// pure fast path, so that nvcc can still do so (the estimates' inline
+// assembly would keep them in the loop). spheres keeps the bounce
+// kernel's winner, sqrtf and all.
 //
 // How the TPU variants map to this card. On the TPU each body was one
 // straight-line vector program in which every branch is computed and
@@ -46,12 +76,14 @@
 // division and square root, 1/sqrt where the tool multiplies by rsqrt,
 // CUDA's sinf/cosf (the functions torch's CUDA sin/cos call), constants
 // rounded from the double as numpy rounds them, and clamps that pass NaN
-// through as torch.clamp does.
+// through as torch.clamp does. exact_math.cuh's functions equal the
+// library's bit for bit wherever their flag holds (math_check below).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bounce_common.cuh"
+#include "exact_math.cuh"
 
 namespace {
 
@@ -76,10 +108,48 @@ constexpr uint32_t STREAM_SCATTER = 0x85EBCA6Bu;
 
 enum Variant { PASS, SPHERES, RNG, TRIG, INTDIV, MATS, FULL, TRIG_LIBDEVICE, N_VARIANTS };
 
-// the tool's integer parameters (zraytrace_tpu/ops/common.py P_*)
+// floor(a / d) for d >= 1 as a multiply-high: q = (u * mul) >> shift for u
+// in [0, 2^31), with shift = 31 + ceil(log2 d) and mul = ceil(2^shift / d)
+// (mul * d - 2^shift < d <= 2^(shift - 31), so q is exact: Granlund and
+// Montgomery, "Division by invariant integers using multiplication", 1994)
+struct IntDivisor {
+  uint32_t mul;
+  int shift, d;
+};
+
+IntDivisor int_divisor(int d) {
+  int l = 0;
+  while ((1ull << l) < (unsigned long long)d) ++l;
+  const unsigned long long p = 1ull << (31 + l);
+  return IntDivisor{(uint32_t)((p + (unsigned)d - 1) / (unsigned)d), 31 + l, d};
+}
+
+// (floor(a / d), a - d * floor(a / d)), the remainder's sign that of d, for
+// any int32 a: a negative a divides as -a - 1 (below 2^31), whose quotient
+// q gives floor(a / d) = -q - 1
+__device__ __forceinline__ int2 floor_divmod(int a, const IntDivisor& v) {
+  const uint32_t neg = (uint32_t)(a >> 31);
+  const uint32_t u = (uint32_t)a ^ neg;
+  const uint32_t q = (uint32_t)(((unsigned long long)u * v.mul) >> v.shift) ^ neg;
+  return make_int2((int)q, (int)((uint32_t)a - q * (uint32_t)v.d));
+}
+
+// the tool's integer parameters (zraytrace_tpu/ops/common.py P_*) and the
+// width's and the material count's divisors
 struct Params {
   int width, height, sample_end, max_depth, seed, n_pixels, stride, sample_start, atlas_w,
       n_slots;
+  IntDivisor width_div, mats_div;
+};
+
+// the tables in shared memory, and the camera's two divisors
+struct Tables {
+  const float* sph;
+  const float4* rows;
+  int n_sph;
+  const float* mats;
+  const float* cam;
+  zr::Divisor wdiv, hdiv;
 };
 
 struct Lane {
@@ -90,22 +160,65 @@ struct Lane {
 __device__ __forceinline__ int add(int a, int b) { return (int)((uint32_t)a + (uint32_t)b); }
 __device__ __forceinline__ int mul(int a, int b) { return (int)((uint32_t)a * (uint32_t)b); }
 
-__device__ __forceinline__ int floordiv(int a, int b) {
-  const int q = a / b;
-  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
-}
-
-__device__ __forceinline__ int floormod(int a, int b) {
-  const int r = a % b;
-  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
-}
-
 // torch.clamp: NaN passes through
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 __device__ __forceinline__ float max0(float x) { return x < 0.0f ? 0.0f : x; }
 __device__ __forceinline__ float min1(float x) { return x > 1.0f ? 1.0f : x; }
+
+// The body's divisions, square roots, reciprocals and trig: the library
+// functions, or (FAST) exact_math.cuh's, which clear ok where they may
+// differ from the library.
+template <bool FAST>
+__device__ __forceinline__ zr::Divisor divisor(float b, bool& ok) {
+  if constexpr (FAST) {
+    ok &= zr::div_operand(b);
+    return zr::divisor(b);
+  } else {
+    return zr::Divisor{b, 0.0f};
+  }
+}
+
+template <bool FAST>
+__device__ __forceinline__ float div_by(float a, const zr::Divisor& d, bool& ok) {
+  if constexpr (FAST) return zr::div_by(a, d, ok);
+  else return a / d.b;
+}
+
+template <bool FAST>
+__device__ __forceinline__ float fdiv(float a, float b, bool& ok) {
+  if constexpr (FAST) return zr::div_fast(a, b, ok);
+  else return a / b;
+}
+
+template <bool FAST, bool ZERO = false>
+__device__ __forceinline__ float fsqrt(float x, bool& ok) {
+  if constexpr (FAST) return zr::sqrt_fast<ZERO>(x, ok);
+  else return sqrtf(x);
+}
+
+template <bool FAST>
+__device__ __forceinline__ float frcp(float x, bool& ok) {
+  if constexpr (FAST) {
+    bool in;
+    const float r = zr::rcp_rn_fast(x, in);
+    ok &= in;
+    return r;
+  } else {
+    return 1.0f / x;
+  }
+}
+
+template <bool FAST>
+__device__ __forceinline__ void fsincos(float x, float& s, float& c, bool& ok) {
+  if constexpr (FAST) {
+    zr::sincos_fast(x, s, c, ok);
+  } else {
+    s = sinf(x);
+    c = cosf(x);
+  }
+}
 
 // zraytrace_tpu/ops/common.py:76-107, the polynomial inverse trig
 __device__ __forceinline__ float atan_core(float z) {
@@ -117,36 +230,45 @@ __device__ __forceinline__ float atan_core(float z) {
   return p * z2 * z + z;
 }
 
-__device__ __forceinline__ float atan2_poly(float y, float x) {
+template <bool FAST>
+__device__ __forceinline__ float atan2_poly(float y, float x, bool& ok) {
   const float ax = fabsf(x), ay = fabsf(y);
   const bool big = ay > ax;
   const float num = big ? ax : ay;
   float den = big ? ay : ax;
   den = den > 0.0f ? den : 1.0f;
-  float a = atan_core(num / den);
+  float a = atan_core(fdiv<FAST>(num, den, ok));
   a = big ? HALF_PI_F - a : a;
   a = x < 0.0f ? PI_F - a : a;
   return y < 0.0f ? -a : a;
 }
 
-__device__ __forceinline__ float acos_poly(float x) {
-  return atan2_poly(sqrtf(max0((1.0f - x) * (1.0f + x))), x);
+template <bool FAST>
+__device__ __forceinline__ float acos_poly(float x, bool& ok) {
+  return atan2_poly<FAST>(fsqrt<FAST>(max0((1.0f - x) * (1.0f + x)), ok), x, ok);
 }
 
 // x * (1 / sqrt(|x|^2)), the tool's x * rsqrt(|x|^2) correctly rounded
-__device__ __forceinline__ V3 normalize_inv(V3 v) {
-  const float inv = 1.0f / sqrtf(v.x * v.x + v.y * v.y + v.z * v.z);
+template <bool FAST>
+__device__ __forceinline__ V3 normalize_inv(V3 v, bool& ok) {
+  const float inv = frcp<FAST>(fsqrt<FAST>(v.x * v.x + v.y * v.y + v.z * v.z, ok), ok);
   return V3{v.x * inv, v.y * inv, v.z * inv};
 }
+
+// sinf and cosf, not inlined: trig's slow path, kept out of its loop
+__device__ __noinline__ float sin_lib(float x) { return sinf(x); }
+__device__ __noinline__ float cos_lib(float x) { return cosf(x); }
 
 __device__ __forceinline__ float wrap01(float x) {
   x = x > 1.0f ? x - 1.0f : x;
   return x < 0.0f ? x + 1.0f : x;
 }
 
-__device__ __forceinline__ void body_full(Lane& c, const float* sph, const float4* rows,
-                                          int n_sph, const float* mats, const float* cam,
-                                          int base, const Params& p, int mask) {
+template <bool FAST>
+__device__ __forceinline__ void body_full(Lane& c, const Tables& tb, int base, const Params& p,
+                                          int mask, bool& ok) {
+  const float* sph = tb.sph;
+  const float* cam = tb.cam;
   const uint32_t seed_sc = (uint32_t)p.seed ^ STREAM_SCATTER;
   const uint32_t seed_cam = (uint32_t)p.seed ^ STREAM_CAMERA;
   const int pixel = add(base, mul(c.slot, p.stride));
@@ -156,8 +278,8 @@ __device__ __forceinline__ void body_full(Lane& c, const float* sph, const float
 
   float t_best;
   unsigned long long n_disc = 0;
-  const int win = zr::sphere_winner<false>(rows, n_sph, V3{c.ox, c.oy, c.oz},
-                                           V3{c.dx, c.dy, c.dz}, T_MIN, t_best, n_disc);
+  const int win = zr::sphere_winner<false, FAST>(tb.rows, tb.n_sph, V3{c.ox, c.oy, c.oz},
+                                                 V3{c.dx, c.dy, c.dz}, T_MIN, t_best, n_disc, ok);
   float cxs = 0.0f, cys = 0.0f, czs = 0.0f, rs = 1.0f;
   int ms = 0;
   if (win >= 0) {
@@ -173,28 +295,31 @@ __device__ __forceinline__ void body_full(Lane& c, const float* sph, const float
   const float py_ = c.oy + t_attr * c.dy;
   const float pz_ = c.oz + t_attr * c.dz;
   const float safe_r = fabsf(rs) > (float)1e-8 ? rs : (float)1e-8;
-  float nx = (px_ - cxs) / safe_r;
-  float ny = (py_ - cys) / safe_r;
-  float nz = (pz_ - czs) / safe_r;
+  const zr::Divisor rdiv = divisor<FAST>(safe_r, ok);
+  float nx = div_by<FAST>(px_ - cxs, rdiv, ok);
+  float ny = div_by<FAST>(py_ - cys, rdiv, ok);
+  float nz = div_by<FAST>(pz_ - czs, rdiv, ok);
   const bool front = c.dx * nx + c.dy * ny + c.dz * nz <= 0.0f;
   const float fsign = front ? 1.0f : -1.0f;
   nx = nx * fsign;
   ny = ny * fsign;
   nz = nz * fsign;
   const float ony = clampf(ny * fsign, CLIP_LO, CLIP_HI);
-  const float theta = acos_poly(-ony);
+  const float theta = acos_poly<FAST>(-ony, ok);
   float onx = nx * fsign;
   const float onz = nz * fsign;
   const bool pole = (fabsf(onx) + fabsf(onz)) < (float)1e-12;
   onx = pole ? (float)1e-12 : onx;
-  const float phi = atan2_poly(-onz, -onx) + PI_F;
+  const float phi = atan2_poly<FAST>(-onz, -onx, ok) + PI_F;
   const float uu_ = phi * INV_TWO_PI_F;
   const float vv_ = theta * INV_PI_F;
 
   const float4 r = zr::uniform4(seed_sc, (uint32_t)pixel, (uint32_t)c.samp, (uint32_t)c.dep);
-  const float* m = mats + ms * M_COLS;  // the tool's where-chain: an indexed read
+  const float* m = tb.mats + ms * M_COLS;  // the tool's where-chain: an indexed read
   const float mtype = m[0], ior = m[1], textype = m[2];
   const float tbase = m[6], uoff = m[7], voff = m[8], th = m[9], tw = m[10];
+  const bool is_lam = mtype < 0.5f;
+  const bool is_met = (mtype >= 0.5f) && (mtype < 1.5f);
 
   const float uu = wrap01(1.0f - uu_ + uoff);
   const float vv = wrap01(vv_ + voff);
@@ -202,11 +327,16 @@ __device__ __forceinline__ void body_full(Lane& c, const float* sph, const float
   const int iy = min(max((int)(vv * th), 0), (int)th - 1);
   const int texflat = add(add((int)tbase, mul(iy, p.atlas_w)), ix);
 
+  // each material's direction; its flag counts only where the lane's
+  // material reads the direction
+  bool ok_lam = true, ok_diel = true;
   const float zr_ = r.x * 2.0f - 1.0f;
   const float phi_l = TWO_PI_F * r.y;
-  const float rad = sqrtf(max0(1.0f - zr_ * zr_));
-  const float rux = rad * cosf(phi_l);
-  const float ruy = rad * sinf(phi_l);
+  const float rad = fsqrt<FAST, true>(max0(1.0f - zr_ * zr_), ok_lam);
+  float sin_l, cos_l;
+  fsincos<FAST>(phi_l, sin_l, cos_l, ok_lam);
+  const float rux = rad * cos_l;
+  const float ruy = rad * sin_l;
   float lx = nx + rux, ly = ny + ruy, lz = nz + zr_;
   if ((lx * lx + ly * ly + lz * lz) < (float)1e-12) {
     lx = nx;
@@ -218,11 +348,11 @@ __device__ __forceinline__ void body_full(Lane& c, const float* sph, const float
   const float my = c.dy - 2.0f * ddn * ny;
   const float mz = c.dz - 2.0f * ddn * nz;
   const bool met_absorb = mx * nx + my * ny + mz * nz <= 0.0f;
-  const float ratio = front ? 1.0f / ior : ior;
+  const float ratio = front ? frcp<FAST>(ior, ok_diel) : ior;
   const float cos_t = min1(-ddn);
-  const float sin_t = sqrtf(max0(1.0f - cos_t * cos_t));
+  const float sin_t = fsqrt<FAST, true>(max0(1.0f - cos_t * cos_t), ok_diel);
   const bool cannot = ratio * sin_t > 1.0f;
-  const float r0s = (1.0f - ratio) / (1.0f + ratio);
+  const float r0s = fdiv<FAST>(1.0f - ratio, 1.0f + ratio, ok_diel);
   const float x = 1.0f - cos_t;
   const float schl = r0s + (1.0f - r0s) * (x * ((x * x) * (x * x)));
   const bool reflect_now = cannot || (schl > r.z);
@@ -230,16 +360,16 @@ __device__ __forceinline__ void body_full(Lane& c, const float* sph, const float
   const float rpy = ratio * (c.dy + cos_t * ny);
   const float rpz = ratio * (c.dz + cos_t * nz);
   const float kk = fabsf(1.0f - (rpx * rpx + rpy * rpy + rpz * rpz));
-  const float kroot = kk > 0.0f ? sqrtf(kk) : 0.0f;
+  const float kroot = kk > 0.0f ? fsqrt<FAST>(kk, ok_diel) : 0.0f;
   const float gx = reflect_now ? mx : rpx - kroot * nx;
   const float gy = reflect_now ? my : rpy - kroot * ny;
   const float gz = reflect_now ? mz : rpz - kroot * nz;
+  ok &= is_lam ? ok_lam : (is_met | ok_diel);
 
-  const bool is_lam = mtype < 0.5f;
-  const bool is_met = (mtype >= 0.5f) && (mtype < 1.5f);
-  const V3 s = normalize_inv(is_lam   ? V3{lx, ly, lz}
-                             : is_met ? V3{mx, my, mz}
-                                      : V3{gx, gy, gz});
+  const V3 s = normalize_inv<FAST>(is_lam   ? V3{lx, ly, lz}
+                                   : is_met ? V3{mx, my, mz}
+                                            : V3{gx, gy, gz},
+                                   ok);
 
   const bool absorbed = is_met && met_absorb;
   const bool miss = processing && !hit;
@@ -285,13 +415,15 @@ __device__ __forceinline__ void body_full(Lane& c, const float* sph, const float
 
   const int pixel2 = add(base, mul(slot2, p.stride));
   const float4 j = zr::uniform4(seed_cam, (uint32_t)pixel2, (uint32_t)samp2, 0u);
-  const float pxf = (float)floormod(pixel2, p.width);
-  const float pyf = (float)floordiv(pixel2, p.width);
-  const float cu = (pxf + j.x - 0.5f) / (float)p.width;
-  const float cv = (pyf + j.y - 0.5f) / (float)p.height;
-  const V3 nd = normalize_inv(V3{cam[3] + cu * cam[6] + cv * cam[9] - cam[0],
-                                 cam[4] + cu * cam[7] + cv * cam[10] - cam[1],
-                                 cam[5] + cu * cam[8] + cv * cam[11] - cam[2]});
+  const int2 qr = floor_divmod(pixel2, p.width_div);
+  const float pxf = (float)qr.y;
+  const float pyf = (float)qr.x;
+  const float cu = div_by<FAST>(pxf + j.x - 0.5f, tb.wdiv, ok);
+  const float cv = div_by<FAST>(pyf + j.y - 0.5f, tb.hdiv, ok);
+  const V3 nd = normalize_inv<FAST>(V3{cam[3] + cu * cam[6] + cv * cam[9] - cam[0],
+                                       cam[4] + cu * cam[7] + cv * cam[10] - cam[1],
+                                       cam[5] + cu * cam[8] + cv * cam[11] - cam[2]},
+                                    ok);
   if (path_done) {
     c.ox = cam[0];
     c.oy = cam[1];
@@ -308,21 +440,20 @@ __device__ __forceinline__ void body_full(Lane& c, const float* sph, const float
   c.slot = slot2;
 }
 
-template <int V>
-__device__ __forceinline__ void body(Lane& c, const float* sph, const float4* rows, int n_sph,
-                                     const float* mats, int n_mats, const float* cam, int base,
-                                     const Params& p, int mask) {
-  if (V == PASS) {
+template <int V, bool FAST>
+__device__ __forceinline__ void body(Lane& c, const Tables& tb, int base, const Params& p,
+                                     int mask, bool& ok) {
+  if constexpr (V == PASS) {
     return;
-  } else if (V == SPHERES) {
+  } else if constexpr (V == SPHERES) {
     float t_best;
     unsigned long long n_disc = 0;
-    const int win = zr::sphere_winner<false>(rows, n_sph, V3{c.ox, c.oy, c.oz},
+    const int win = zr::sphere_winner<false>(tb.rows, tb.n_sph, V3{c.ox, c.oy, c.oz},
                                              V3{c.dx, c.dy, c.dz}, T_MIN, t_best, n_disc);
-    const int ms = win >= 0 ? (int)sph[win * zr::S_COLS + zr::S_MAT] : 0;
+    const int ms = win >= 0 ? (int)tb.sph[win * zr::S_COLS + zr::S_MAT] : 0;
     c.tr = t_best < BIG ? c.tr : t_best;
     c.tb = c.tb + (float)ms;
-  } else if (V == RNG) {
+  } else if constexpr (V == RNG) {
     const int pixel = add(base, mul(c.slot, p.stride));
     const float4 r = zr::uniform4((uint32_t)p.seed ^ STREAM_SCATTER, (uint32_t)pixel,
                                   (uint32_t)c.samp, (uint32_t)c.dep);
@@ -333,26 +464,55 @@ __device__ __forceinline__ void body(Lane& c, const float* sph, const float4* ro
     c.oz = c.oz + r.z;
     c.dx = c.dx + j.x;
     c.dy = c.dy + j.y;
-  } else if (V == TRIG || V == TRIG_LIBDEVICE) {
+  } else if constexpr (V == TRIG) {
+    // acos and atan2 with the library's division and square root, sin and
+    // cos from one pure fast path: trig's inputs do not change between
+    // iterations, and nvcc computes what it can prove pure once per launch
+    // (exact_math.cuh's estimates are inline assembly, which it keeps in
+    // the loop)
     const float ony = clampf(c.dy, CLIP_LO, CLIP_HI);
-    const float theta = V == TRIG ? acos_poly(-ony) : acosf(-ony);
-    const float phi = (V == TRIG ? atan2_poly(-c.dz, -c.dx) : atan2f(-c.dz, -c.dx)) + PI_F;
+    bool in = true;
+    const float theta = acos_poly<false>(-ony, in);
+    const float phi = atan2_poly<false>(-c.dz, -c.dx, in) + PI_F;
+    float s = zr::sin_fast(theta * 2.0f, in), co = zr::cos_fast(phi, in);
+    if (!in) {
+      s = sin_lib(theta * 2.0f);
+      co = cos_lib(phi);
+    }
+    c.ox = c.ox + s;
+    c.oy = c.oy + co;
+    c.oz = c.oz + theta;
+  } else if constexpr (V == TRIG_LIBDEVICE) {
+    const float ony = clampf(c.dy, CLIP_LO, CLIP_HI);
+    const float theta = acosf(-ony);
+    const float phi = atan2f(-c.dz, -c.dx) + PI_F;
     c.ox = c.ox + sinf(theta * 2.0f);
     c.oy = c.oy + cosf(phi);
     c.oz = c.oz + theta;
-  } else if (V == INTDIV) {
-    const int pixel = add(base, c.slot);
-    c.ox = c.ox + (float)floormod(pixel, p.width);
-    c.oy = c.oy + (float)floordiv(pixel, p.width);
-  } else if (V == MATS) {
-    const int ms = floormod(c.dep, n_mats);
+  } else if constexpr (V == INTDIV) {
+    const int2 qr = floor_divmod(add(base, c.slot), p.width_div);
+    c.ox = c.ox + (float)qr.y;
+    c.oy = c.oy + (float)qr.x;
+  } else if constexpr (V == MATS) {
+    const int ms = floor_divmod(c.dep, p.mats_div).y;
     float acc = 0.0f;
 #pragma unroll
-    for (int col = 0; col < M_COLS; ++col) acc = acc + mats[ms * M_COLS + col];
+    for (int col = 0; col < M_COLS; ++col) acc = acc + tb.mats[ms * M_COLS + col];
     c.ox = c.ox + acc;
   } else {
-    body_full(c, sph, rows, n_sph, mats, cam, base, p, mask);
+    body_full<FAST>(c, tb, base, p, mask, ok);
   }
+}
+
+
+// One iteration from the library functions alone: the slow path of an
+// iteration whose fast body cleared its flag. Not inlined, so that the
+// loop holds one call in place of a second body.
+template <int V>
+__device__ __noinline__ Lane body_lib(Lane c, Tables tb, int base, Params p, int mask) {
+  bool ok = true;
+  body<V, false>(c, tb, base, p, mask, ok);
+  return c;
 }
 
 template <int V>
@@ -375,6 +535,9 @@ body_kernel(const float* __restrict__ sph_g, int n_sph, const float* __restrict_
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
+  bool ok_tables = true;  // the camera's divisors in the fast path's range
+  const Tables tb{sph, rows, n_sph, mats, cam, divisor<true>((float)p.width, ok_tables),
+                  divisor<true>((float)p.height, ok_tables)};
   float f[N_F32];
 #pragma unroll
   for (int k = 0; k < N_F32; ++k) f[k] = in_f[(size_t)k * n + lane];
@@ -382,8 +545,16 @@ body_kernel(const float* __restrict__ sph_g, int n_sph, const float* __restrict_
          in_i[lane], in_i[(size_t)n + lane], in_i[2 * (size_t)n + lane]};
   const int base = base_g[lane];
 #pragma unroll 1
-  for (int i = 0; i < iters; ++i)
-    body<V>(c, sph, rows, n_sph, mats, n_mats, cam, base, p, mask);
+  for (int i = 0; i < iters; ++i) {
+    bool ok = ok_tables;
+    if constexpr (V == FULL) {
+      Lane next = c;
+      body<V, true>(next, tb, base, p, mask, ok);
+      c = ok ? next : body_lib<V>(c, tb, base, p, mask);
+    } else {
+      body<V, true>(c, tb, base, p, mask, ok);
+    }
+  }
   const float o[N_F32] = {c.ox, c.oy, c.oz, c.dx, c.dy, c.dz, c.tr, c.tg, c.tb, c.ar, c.ag, c.ab};
 #pragma unroll
   for (int k = 0; k < N_F32; ++k) out_f[(size_t)k * n + lane] = o[k];
@@ -400,6 +571,101 @@ void launch_v(int grid, cudaStream_t s, const float* sph, int n_sph, const float
                                         out_i, n, p, iters, /*mask=*/0);
 }
 
+// exact_math.cuh against the library, for math_check: FN_SIN and
+// FN_SINCOS on the floats with bits lo .. lo + count - 1 (sin_fast and
+// cos_fast with them, against sinf and cosf), FN_SQRT the same for
+// sqrt_fast<true> against sqrtf; FN_DIV on `count` pairs from index lo
+// (div_fast against the IEEE division): random bits with the exponent
+// fields drawn from [56, 198], about the fast range [67, 187] with both
+// its edges, or, for FN_DIV_NEAR, b random in that range and a = b * q
+// rounded, q with a 12-bit mantissa, so that many quotients lie at or
+// next to a float and the final correction decides them; FN_DIV_EDGES on
+// the pairs of EDGES x EDGES floats (index lo + i). tally[0] += the
+// values or pairs on the fast path, tally[1] += those that differ from
+// the library in any bit.
+enum MathFn { FN_SIN, FN_SINCOS, FN_SQRT, FN_DIV, FN_DIV_NEAR, FN_DIV_EDGES, N_FN };
+
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {  // a 32-bit finaliser (murmur3)
+  x ^= x >> 16;
+  x *= 0x85ebca6bu;
+  x ^= x >> 13;
+  x *= 0xc2b2ae35u;
+  return x ^ (x >> 16);
+}
+
+__device__ __forceinline__ float with_exponent(uint32_t bits, uint32_t e) {
+  return __uint_as_float((bits & 0x807fffffu) | (e << 23));
+}
+
+// the edge floats of the division's range: exponent fields at and beside
+// the range's ends, and at the ends of all floats, with the extreme
+// mantissas and their neighbours, of both signs (17 x 8 x 2)
+__device__ __forceinline__ float edge_float(uint32_t i) {
+  const uint32_t exps[17] = {0, 1, 2, 65, 66, 67, 68, 100, 126, 127, 128, 150, 186, 187, 188,
+                             254, 255};
+  const uint32_t mants[8] = {0, 1, 2, 0x3fffff, 0x400000, 0x400001, 0x7ffffe, 0x7fffff};
+  return __uint_as_float(((i & 1u) << 31) | (exps[(i >> 1) % 17] << 23) | mants[(i >> 1) / 17]);
+}
+constexpr uint32_t N_EDGES = 17 * 8 * 2;
+
+__global__ void __launch_bounds__(256)
+math_check_kernel(int fn, unsigned lo, unsigned long long count,
+                  unsigned long long* __restrict__ tally) {
+  unsigned long long fast = 0, bad = 0;
+  const unsigned long long stride = (unsigned long long)gridDim.x * blockDim.x;
+  for (unsigned long long i = blockIdx.x * blockDim.x + threadIdx.x; i < count; i += stride) {
+    const uint32_t k = lo + (uint32_t)i;
+    bool ok = true;
+    bool differs = false;
+    if (fn == FN_SIN || fn == FN_SINCOS || fn == FN_SQRT) {
+      const float x = __uint_as_float(k);
+      if (fn == FN_SQRT) {
+        const float r = zr::sqrt_fast<true>(x, ok);
+        differs = __float_as_uint(r) != __float_as_uint(sqrtf(x));
+      } else if (fn == FN_SIN) {
+        const float s = zr::sin_fast(x, ok), c = zr::cos_fast(x, ok);
+        differs = __float_as_uint(s) != __float_as_uint(sinf(x)) ||
+                  __float_as_uint(c) != __float_as_uint(cosf(x));
+      } else {
+        float s, c;
+        zr::sincos_fast(x, s, c, ok);
+        differs = __float_as_uint(s) != __float_as_uint(sinf(x)) ||
+                  __float_as_uint(c) != __float_as_uint(cosf(x));
+      }
+    } else {
+      float a, b;
+      if (fn == FN_DIV_EDGES) {
+        a = edge_float(k / N_EDGES);
+        b = edge_float(k % N_EDGES);
+      } else {
+        const uint32_t ha = mix32(k * 2u + 1u), hb = mix32(k * 2u + 0x9e3779b9u);
+        b = with_exponent(hb, 56u + (mix32(hb) >> 8) % 143u);
+        if (fn == FN_DIV) {
+          a = with_exponent(ha, 56u + (mix32(ha) >> 8) % 143u);
+        } else {  // b times a q of 12 mantissa bits, about 2^-40 .. 2^40
+          const float q = with_exponent(ha & 0x807ff000u, 87u + (mix32(ha) >> 8) % 81u);
+          a = b * q;
+        }
+      }
+      const float q = zr::div_fast(a, b, ok);
+      differs = __float_as_uint(q) != __float_as_uint(__fdiv_rn(a, b));
+    }
+    if (ok) {
+      ++fast;
+      bad += differs;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    fast += __shfl_xor_sync(0xffffffffu, fast, off);
+    bad += __shfl_xor_sync(0xffffffffu, bad, off);
+  }
+  if (threadIdx.x % 32 == 0) {
+    atomicAdd(tally, fast);
+    atomicAdd(tally + 1, bad);
+  }
+}
+
 }  // namespace
 
 // variant: index into zraytrace_tpu_torch/probes/body_probe.py VARIANTS;
@@ -414,8 +680,8 @@ extern "C" int zr_probe_body_launch(int variant, const float* sph, int n_sph, co
       n_mats > MAX_MATS || n < 0 || iters < 0 || params[0] <= 0 || params[1] <= 0)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  const Params p{params[0], params[1], params[2], params[3], params[4],
-                 params[5], params[6], params[7], params[8], params[9]};
+  const Params p{params[0], params[1], params[2], params[3], params[4], params[5], params[6],
+                 params[7], params[8], params[9], int_divisor(params[0]), int_divisor(n_mats)};
   const int grid = (n + BLOCK - 1) / BLOCK;
   cudaStream_t s = (cudaStream_t)stream;
   switch (variant) {
@@ -434,6 +700,15 @@ extern "C" int zr_probe_body_launch(int variant, const float* sph, int n_sph, co
     ZR_CASE(TRIG_LIBDEVICE)
 #undef ZR_CASE
   }
+  return (int)cudaGetLastError();
+}
+
+// fn: MathFn; tally (2,) uint64, added to: see math_check_kernel
+extern "C" int zr_probe_math_check(int fn, unsigned lo, unsigned long long count,
+                                   unsigned long long* tally, void* stream) {
+  if (fn < 0 || fn >= N_FN) return (int)cudaErrorInvalidValue;
+  if (count == 0) return 0;
+  math_check_kernel<<<132 * 8, 256, 0, (cudaStream_t)stream>>>(fn, lo, count, tally);
   return (int)cudaGetLastError();
 }
 

@@ -18,7 +18,10 @@ sphere winner are the bounce kernel's own device functions
 (``csrc/bounce_common.cuh``). ``body_chain`` launches it for CUDA
 tensors and runs ``body_chain_plain`` for CPU tensors. The polynomial
 ``_acos``/``_atan2`` are this module's copy of
-``zraytrace_tpu/ops/common.py:76-107``.
+``zraytrace_tpu/ops/common.py:76-107``. The kernel takes its divisions,
+square roots, reciprocals, sinf and cosf from ``csrc/exact_math.cuh``'s
+fast paths; ``math_check`` holds those to CUDA's own functions on the
+card, bit for bit.
 
     python -m zraytrace_tpu_torch.probes.body_probe [--cpu] [variant ...]
 """
@@ -37,8 +40,9 @@ from zraytrace_tpu_torch.ops.bounce_kernel import scene_tables, sphere_rows
 from zraytrace_tpu_torch.probes import common
 from zraytrace_tpu_torch.scenes import three_balls
 
-__all__ = ["VARIANTS", "LAUNCHES", "R_TOT", "L", "B", "K", "N_F32", "N_I32", "body_chain",
-           "body_chain_plain", "make_inputs", "measure", "full_ops"]
+__all__ = ["VARIANTS", "LAUNCHES", "R_TOT", "L", "B", "K", "N_F32", "N_I32", "MATH_CHECKS",
+           "body_chain", "body_chain_plain", "make_inputs", "measure", "full_ops",
+           "full_bytes", "full_instructions", "math_check"]
 
 R_TOT, L = 1024, 128
 B = 8  # body iterations per launch
@@ -447,6 +451,58 @@ FULL_INT_OPS = 4 + 2 * 30 + 6 + 6 + 4
 def full_ops(n_lanes: int, iters: int = B) -> tuple[int, int]:
     """(FP32, int32) operations of ``full`` over ``n_lanes`` and ``iters``."""
     return FULL_FP32_OPS * n_lanes * iters, FULL_INT_OPS * n_lanes * iters
+
+
+# FULL_FP32_OPS's library operations as FP32 instructions of their fast
+# paths (each multiply, add or fused multiply-add one instruction, as
+# ptxas emits them and csrc/exact_math.cuh writes them out): a division
+# (eight) a reciprocal and five fused multiply-adds, a reciprocal (three:
+# 1 / |v| twice, 1 / ior) the estimate and two, a square root (thirteen,
+# the winner's seven included) the estimate, two multiplies and two, and
+# sinf or cosf (two) libdevice's quadrant 2, reduction 3, square 1,
+# polynomial 4 and sign 1 (overlap_probe.SIN_INSTRS).
+_DIV, _RCP, _SQRT, _TRIG = 8, 3, 13, 2
+FULL_FP32_INSTRS = (FULL_FP32_OPS - (_DIV + _RCP + _SQRT + _TRIG)
+                    + 6 * _DIV + 3 * _RCP + 5 * _SQRT + 11 * _TRIG)
+
+
+def full_bytes(n_lanes: int) -> int:
+    """Bytes a launch must move: the 15 planes in and out and the base
+    plane, once each, and the scene tables."""
+    return (16 + 15) * 4 * n_lanes + 4 * (7 * 5 + 5 * 11 + 12)
+
+
+def full_instructions(n_lanes: int, iters: int = B) -> tuple[int, int]:
+    """(FP32 instructions, int32 operations) of ``full``: the work priced at
+    one instruction per multiply, add or fused multiply-add."""
+    return FULL_FP32_INSTRS * n_lanes * iters, FULL_INT_OPS * n_lanes * iters
+
+
+# math_check's functions (csrc/probe_body.cu MathFn) -> (launches of
+# (first bits or pair index, count)): every float for the one-argument
+# functions, 2^32 random pairs, 2^30 near-exact quotients and the 272 x 272
+# edge pairs for the division
+MATH_CHECKS = {"sin": (0, 1 << 32), "sincos": (0, 1 << 32), "sqrt": (0, 1 << 32),
+               "div": (0, 1 << 32), "div_near": (0, 1 << 30), "div_edges": (0, 272 * 272)}
+
+
+def math_check(device, fn: str) -> tuple[int, int]:
+    """(values or pairs on the fast path, of those the ones that differ):
+    ``csrc/exact_math.cuh``'s functions against CUDA's on the card, bit for
+    bit (``fn``: ``sin`` for sin_fast and cos_fast, ``sincos``, ``sqrt``
+    with zeros, ``div``, ``div_near``, ``div_edges``; see
+    ``csrc/probe_body.cu`` math_check_kernel)."""
+    if torch.device(device).type != "cuda":
+        raise ValueError("math_check runs on a CUDA device")
+    lo, count = MATH_CHECKS[fn]
+    tally = torch.zeros(2, dtype=torch.int64, device=device)
+    check = common.bind("probe_body", "zr_probe_math_check",
+                        [ctypes.c_int, ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p,
+                         ctypes.c_void_p])
+    with torch.cuda.device(device):
+        common.launch("probe_body", check, list(MATH_CHECKS).index(fn), lo, count,
+                      tally.data_ptr())
+    return tuple(tally.tolist())
 
 
 # Tolerance of the float planes, kernel against plain on the card: none.

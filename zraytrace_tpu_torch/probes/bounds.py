@@ -13,12 +13,17 @@ counting build.
 
 from __future__ import annotations
 
-__all__ = ["PEAK_FLOPS", "PEAK_BYTES", "RAY_SETUP_FLOPS", "bound", "nbytes", "tri_flops",
-           "walk_flops", "margin_flops", "bounce_flops"]
+__all__ = ["PEAK_FLOPS", "PEAK_BYTES", "PEAK_INSTRUCTIONS", "SCHEDULERS", "RAY_SETUP_FLOPS",
+           "bound", "unfused_ms", "issue_ms", "nbytes", "tri_flops", "walk_flops", "margin_flops",
+           "bounce_flops"]
 
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, HBM3.
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# FP32 lane-instructions per second: one multiply, add or fused
+# multiply-add per lane and clock, half the fused operation rate
+PEAK_INSTRUCTIONS = PEAK_FLOPS / 2
+SCHEDULERS = 132 * 4  # warp schedulers: each issues one warp instruction a clock
 # FP32 operations per event or stage, counted from csrc/bounce_kernel.cu,
 # csrc/tri_winner.cuh and csrc/tri_bvh.cuh
 CAMERA_FLOPS = 34  # jitter scale 4, viewport uv 6, direction 15, normalize 9
@@ -52,6 +57,21 @@ def bound(flops: float, nbytes: float, int_ops: float = 0) -> tuple[float, str]:
     t_ops = (flops + int_ops) / PEAK_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def unfused_ms(fp32_instructions: float, int_ops: float = 0) -> float:
+    """The bound at one instruction per FP32 multiply, add or fused
+    multiply-add (the rate -fmad=false leaves, where every multiply and add
+    the source writes apart is an instruction of its own), INT32
+    operations priced as ``bound`` prices them."""
+    return (fp32_instructions + int_ops / 2) / PEAK_INSTRUCTIONS * 1e3
+
+
+def issue_ms(warp_instructions: float, clock_hz: float) -> float:
+    """The time the card's schedulers take to issue ``warp_instructions``
+    (each a warp's, all of them counted in the SASS) at ``clock_hz``, one a
+    clock on each scheduler."""
+    return warp_instructions / (SCHEDULERS * clock_hz) * 1e3
 
 
 def nbytes(*tensors) -> int:
