@@ -181,7 +181,7 @@ def _blocks(instrs):
     return blocks
 
 
-def loops(instrs) -> list[dict]:
+def loops(instrs, with_instrs: bool = False) -> list[dict]:
     """One entry per backward branch, the largest first: ``head`` and
     ``tail`` (the offsets of its target and of the branch), ``ops`` (the
     loop's instructions by ``count_ops``: the blocks on a path from the
@@ -192,7 +192,8 @@ def loops(instrs) -> list[dict]:
     Payne-Hanek reduction, which keeps its product in local memory, and
     the blocks on no path from the head to the branch that avoids them),
     and ``trip_iters`` (sinf's reduction multiplies by 2/pi among
-    the hot instructions: iterations per trip of the overlap chain)."""
+    the hot instructions: iterations per trip of the overlap chain); with
+    ``with_instrs``, ``hot_instrs``, the hot path's instructions."""
     blocks = _blocks(instrs)
     start_of = {}
     for a, (_, b, _) in blocks.items():
@@ -232,6 +233,8 @@ def loops(instrs) -> list[dict]:
         ins = lambda bs: [instrs[j] for a in sorted(bs) for j in range(a, blocks[a][1])]
         out.append(dict(head=t, tail=off, ops=count_ops(ins(body)), hot=count_ops(ins(hot)),
                         trip_iters=sum("0.6366197" in text for *_, text in ins(hot))))
+        if with_instrs:
+            out[-1]["hot_instrs"] = ins(hot)
     return sorted(out, key=lambda r: -r["ops"].get("all", 0))
 
 

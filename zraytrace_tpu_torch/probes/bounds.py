@@ -14,6 +14,7 @@ counting build.
 from __future__ import annotations
 
 __all__ = ["PEAK_FLOPS", "PEAK_BYTES", "PEAK_INSTRUCTIONS", "SCHEDULERS", "RAY_SETUP_FLOPS",
+           "PHILOX_X_INT_OPS", "PCG4D_X_INT_OPS",
            "bound", "unfused_ms", "issue_ms", "nbytes", "tri_flops", "walk_flops", "margin_flops",
            "bounce_flops"]
 
@@ -44,6 +45,17 @@ V_FLOPS = 14  # u passed: (o x d).e1 5, d.(e1 x a) 5, - 1, negation 1, * 1/det 1
 # past t > t_min, u 12, v 13 and 1 - u - v 2
 MARGIN_RAY_FLOPS = RAY_SETUP_FLOPS + 3
 MARGIN_T_FLOPS = 27
+# INT32 operations per lane of the capability probe's generators
+# (csrc/probe_pallas.cu), for the one word each keeps, as the code writes
+# them: Philox4x32-10's first word needs 70 of its rounds' 80 operations
+# (a word's multiply-high or low 1, its two xors 2; the last two rounds
+# need 1 and 3 of their 4 words) and 17 of the key schedule's 18 adds;
+# PCG4D's x needs the four seeds (multiply, add: 8), the first mixing
+# round (8), the four xor-shifts (8), x's own update in the second round
+# (2), the shift to 24 bits and the conversion (2), beside one FP32
+# multiply by 2^-24.
+PHILOX_X_INT_OPS = 70 + 17
+PCG4D_X_INT_OPS = 8 + 8 + 8 + 2 + 2
 
 
 def bound(flops: float, nbytes: float, int_ops: float = 0) -> tuple[float, str]:

@@ -18,8 +18,9 @@ one launch of the TPU tool's shape, CUDA events), ``plain_ms`` (the plain
 version's time for the same work), ``per`` and ``unit`` (the kernel's
 time per lane, element, texel or triangle pair, as the tool printed it),
 ``max_abs_err`` (kernel against plain) and ``device``; optionally
-``library_ms`` (one PyTorch library call for the same work, timed only)
-and ``note``. On the host ``ms`` is None and ``plain_ms`` is host time. A
+``library_ms`` (one PyTorch library call for the same work, timed only),
+``floor_ms`` (a kernel that does nothing, on the launch's grid), the
+row's own bound (``bound_ms``, ``bound_by``) and ``note``. On the host ``ms`` is None and ``plain_ms`` is host time. A
 row with neither time is a check that times nothing (its ``note`` says
 what was checked); a row with ``ms`` alone is a library call's.
 """
@@ -36,7 +37,7 @@ import torch
 
 __all__ = ["ProbeMismatch", "THIS", "device_from_argv", "select", "card_line", "time_ms",
            "time_graph", "time_graph_calls", "build_checkouts", "ab_rounds", "bind", "launch",
-           "compare", "format_row", "main_for", "as_int32_bits"]
+           "aligned16", "compare", "format_row", "main_for", "as_int32_bits"]
 
 THIS = "this"  # the name of this checkout's build beside others
 
@@ -207,6 +208,15 @@ def launch(source: str, fn, *args) -> None:
         raise RuntimeError(f"{source} launch failed: {msg}")
 
 
+def aligned16(t: torch.Tensor | None) -> torch.Tensor | None:
+    """``t`` contiguous and 16-byte aligned, for kernels that move four
+    lanes in one load (a copy where a view starts elsewhere)."""
+    if t is None:
+        return None
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def as_int32_bits(v: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2^32) -> an int32 tensor of the same bits (the
     plain versions' uint32 results; torch has no full uint32 arithmetic)."""
@@ -252,6 +262,9 @@ def format_row(row: dict, card: str | None = None) -> str:
                 f"{row['per']:.4f} {row['unit']}{note}{where}")
     if row.get("library_ms") is not None:
         note = f"; library {row['library_ms']:.5f} ms{note}"
+    if row.get("floor_ms") is not None:  # a launch floor and a bound of the row's own
+        note = (f"; floor {row['floor_ms']:.5f} ms; bound {row['bound_ms']:.5f} ms "
+                f"({row['bound_by']}){note}")
     # a row without a plain time holds its kernel to what its note names
     plain = ("" if row["plain_ms"] is None
              else f"; plain {row['plain_ms']:.4f} ms; kernel vs plain")

@@ -11,15 +11,24 @@ Counterpart of ``tools/gather_probe3.py`` (its ``pallas_call``\\ s :63,
   ``s = 1`` or ``s = i``, in ``jnp.roll``'s direction;
 - ``tex128_1024``: ``tbl[q, c]`` on an int32 ``(1024, 128)`` table, the
   tool's contract (its 128-round rotate-gather is TPU machinery; the
-  kernel gathers directly);
+  kernel gathers directly); ``tex128_8192`` the same on 2^20 lanes and a
+  4 MB table, the bounce kernel's scale;
 - ``xla_gather``: the library row, ``sum_K tbl[(idx + i) % F][:, 0]`` on
   ``F = 533,000`` rows of 3 f32 and 131,072 lanes, through PyTorch
   indexing (the tool ran it in XLA, outside Pallas);
 - ``vmem_48k``, ``vmem_100k``, ``vmem_optin``: a block with that many bytes
   of dynamic shared memory writes rows 0 and n - 1 of its scratch and
-  returns their sum (3.0 per lane); ``vmem_refused``: a request of the
-  card's opt-in limit plus 1 KB must be refused, and the probe reports the
-  limit as its measured cap. The TPU's VMEM megabytes have no counterpart.
+  returns their sum (3.0 per lane), timed as a CUDA graph of launches
+  (the opt-in of each size made once, before the graph); ``vmem_refused``:
+  a request of the card's opt-in limit plus 1 KB must be refused, and the
+  probe reports the limit as its measured cap. The TPU's VMEM megabytes
+  have no counterpart.
+
+Each kernel row carries ``floor_ms`` (a kernel that does nothing, with the
+launch's grid, block and shared memory, timed the same way) and its bound
+(``bound_ms``, ``bound_by``: the table, ids and output once, the adds at
+the FP32 rate; ``work``). Graph timing reuses the same inputs, so the
+tables are warm in L2.
 
 Rows of the gathers, rolls and tex128 carry ``library_ms``: one PyTorch
 call for the same reads (``torch.gather`` of all K rounds' ids,
@@ -40,10 +49,11 @@ import numpy as np
 import torch
 
 from zraytrace_tpu_torch.probes import common
+from zraytrace_tpu_torch.probes.bounds import bound
 
-__all__ = ["MODES", "VARIANTS", "SHAPES", "LAUNCHES", "L", "K", "F_XLA", "gather3",
+__all__ = ["MODES", "VARIANTS", "SHAPES", "SCRATCH", "LAUNCHES", "L", "K", "F_XLA", "gather3",
            "gather3_plain", "scratch", "scratch_plain", "scratch_refused", "smem_optin",
-           "make_inputs", "library_xla_gather", "measure"]
+           "make_inputs", "launch_floor", "work", "library_xla_gather", "measure"]
 
 L = 128
 K = 32
@@ -53,7 +63,7 @@ MODES = ("dg0", "dg1", "roll", "roll_dyn", "tex")
 # variant -> (mode, rows)
 SHAPES = {"dg0_1024": ("dg0", 1024), "dg0_4096": ("dg0", 4096), "dg1_1024": ("dg1", 1024),
           "roll_1024": ("roll", 1024), "roll_dyn_1024": ("roll_dyn", 1024),
-          "tex128_1024": ("tex", 1024)}
+          "tex128_1024": ("tex", 1024), "tex128_8192": ("tex", 8192)}
 # scratch variants -> bytes of dynamic shared memory (None: the card's limit)
 SCRATCH = {"vmem_48k": 48 * 1024, "vmem_100k": 100 * 1024, "vmem_optin": None}
 VARIANTS = tuple(SHAPES) + ("xla_gather",) + tuple(SCRATCH) + ("vmem_refused",)
@@ -93,6 +103,8 @@ def _lib():
     if lib.zr_probe_scratch_launch.argtypes is None:
         lib.zr_probe_scratch_launch.argtypes = [_P, _P, _I, _P]
         lib.zr_probe_scratch_launch.restype = _I
+        lib.zr_probe_gather3_floor.argtypes = [_I, _I, _I, _P]
+        lib.zr_probe_gather3_floor.restype = _I
         lib.zr_probe_smem_optin.argtypes = []
         lib.zr_probe_smem_optin.restype = _I
     return fn, lib
@@ -102,7 +114,8 @@ def gather3(mode: str, tbl: torch.Tensor, idx: torch.Tensor | None = None,
             idx2: torch.Tensor | None = None, rounds: int = K) -> torch.Tensor:
     """One launch of the probe kernel in ``mode`` on CUDA tensors; the plain
     version on CPU tensors. ``tbl`` ``(R, 128)`` (f32, int32 for ``tex``),
-    R a power of two; ids int32 of the same shape."""
+    R a power of two; ids int32 of the same shape (copied where a view is
+    not 16-byte aligned)."""
     global LAUNCHES
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
@@ -119,8 +132,7 @@ def gather3(mode: str, tbl: torch.Tensor, idx: torch.Tensor | None = None,
         return gather3_plain(mode, tbl, idx, idx2, rounds)
     if tbl.device.type != "cuda" or any(x.device != tbl.device for x in ids):
         raise ValueError("gather3 runs on cpu or cuda tensors, all on one device")
-    tbl = tbl.contiguous()
-    idx, idx2 = (None if x is None else x.contiguous() for x in (idx, idx2))
+    tbl, idx, idx2 = (common.aligned16(x) for x in (tbl, idx, idx2))
     out = torch.empty(tbl.shape, dtype=want, device=tbl.device)
     fn, _ = _lib()
     with torch.cuda.device(tbl.device):
@@ -190,10 +202,33 @@ def smem_optin(device) -> int:
     return got
 
 
-def make_inputs(variant: str, device, seed: int = 0):
+def launch_floor(mode: str | None, rows: int, device, nbytes: int = 0) -> None:
+    """One launch of a kernel that does nothing, with the grid, block and
+    shared memory of ``gather3(mode)`` on ``rows`` rows, or (``mode``
+    None) of ``scratch`` with ``nbytes``: the launch floor of a row."""
+    _, lib = _lib()
+    with torch.cuda.device(device):
+        common.launch("probe_gather3", lib.zr_probe_gather3_floor,
+                      len(MODES) if mode is None else MODES.index(mode), rows, nbytes)
+
+
+def work(mode: str, rows: int, rounds: int = K) -> dict:
+    """What one launch must do, for its bound: FP32 ``flops`` (the
+    gathers' and rolls' adds), ``nbytes`` (the table or x, the ids and the
+    output, each once) and ``int_ops`` (none priced: the index arithmetic
+    is the kernel's, not the function's)."""
+    n = rows * L
+    if mode == "tex":
+        return dict(flops=0, nbytes=4 * 4 * n, int_ops=0)
+    ids = 1 if mode in ("dg0", "dg1") else 0
+    return dict(flops=n * rounds, nbytes=4 * (2 + ids) * n, int_ops=0)
+
+
+def make_inputs(variant: str, device, seed: int = 0, rows: int | None = None):
     """(mode, tbl, idx, idx2) of a gather variant, drawn as the tool draws
-    them (``default_rng(0)``: the table, then the ids)."""
-    mode, rows = SHAPES[variant]
+    them (``default_rng(0)``: the table, then the ids); ``rows`` replaces
+    the variant's row count."""
+    mode, rows = SHAPES[variant][0], rows or SHAPES[variant][1]
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(a).to(device)
     if mode == "tex":
@@ -232,13 +267,18 @@ def _library_ms(mode, tbl, idx, idx2, device) -> float:
     return common.time_graph(lambda: torch.gather(src, axis, ids), device)
 
 
+def _bound(row: dict, w: dict) -> None:
+    row["bound_ms"], row["bound_by"] = bound(w["flops"], w["nbytes"], int_ops=w["int_ops"])
+
+
 def measure(device, variants=VARIANTS) -> list[dict]:
     """One row per variant (see ``probes.common``): the kernel equals the
     plain version bit for bit (gathers and integer reads exactly, the sums
-    in the same order), timed as a CUDA graph of launches, with the library
-    yardstick beside it; ``xla_gather`` is a library row; the scratch rows
-    hold the kernel to 3.0 per lane and the refusal row checks that the
-    card refuses a block above its opt-in limit."""
+    in the same order), timed as a CUDA graph of launches beside its launch
+    floor, with the library yardstick and the bound; ``xla_gather`` is a
+    library row; the scratch rows hold the kernel to 3.0 per lane and the
+    refusal row checks that the card refuses a block above its opt-in
+    limit."""
     rows = []
     for name in variants:
         row = dict(probe="gather_probe3", variant=name, device=str(device), ms=None, per=None,
@@ -248,10 +288,13 @@ def measure(device, variants=VARIANTS) -> list[dict]:
             plain, row["plain_ms"] = common.time_ms(
                 lambda: gather3_plain(mode, tbl, idx, idx2), device, repeats=1)
             row["unit"] = "ns/fetch" if mode == "tex" else "ns/element-round"
+            _bound(row, work(mode, tbl.shape[0]))
             if device.type == "cuda":
                 got = gather3(mode, tbl, idx, idx2)
                 row["max_abs_err"] = common.compare(f"gather_probe3 {name}", got, plain)
                 row["ms"] = common.time_graph(lambda: gather3(mode, tbl, idx, idx2), device)
+                row["floor_ms"] = common.time_graph(
+                    lambda: launch_floor(mode, tbl.shape[0], device), device)
                 n = tbl.numel() * (1 if mode == "tex" else K)
                 row["per"] = row["ms"] / n * 1e6
                 row["library_ms"] = _library_ms(mode, tbl, idx, idx2, device)
@@ -268,6 +311,7 @@ def measure(device, variants=VARIANTS) -> list[dict]:
             x = torch.ones(L, dtype=torch.float32, device=device)
             row.update(unit="KB scratch", plain_ms=common.time_ms(lambda: scratch_plain(x), device,
                                                                   repeats=1)[1])
+            _bound(row, dict(flops=0, nbytes=2 * 4 * L, int_ops=0))  # x and out
             if device.type == "cuda" and name == "vmem_refused":
                 cap = smem_optin(device)
                 refused = scratch_refused(x, cap + 1024)
@@ -280,10 +324,12 @@ def measure(device, variants=VARIANTS) -> list[dict]:
                                 f"refused: {refused}; measured cap {cap} B")
             elif device.type == "cuda":
                 nbytes = SCRATCH[name] or smem_optin(device)
-                got = scratch(x, nbytes)
+                got = scratch(x, nbytes)  # opts in to nbytes, before any graph
                 row["max_abs_err"] = common.compare(f"gather_probe3 {name}", got,
                                                     torch.full_like(x, 3.0))
-                _, row["ms"] = common.time_ms(lambda: scratch(x, nbytes), device)
+                row["ms"] = common.time_graph(lambda: scratch(x, nbytes), device)
+                row["floor_ms"] = common.time_graph(
+                    lambda: launch_floor(None, 0, device, nbytes), device)
                 row.update(per=nbytes / 1024, note=f"{nbytes} B, 3.0 in every lane")
         rows.append(row)
     return rows
