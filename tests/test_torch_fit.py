@@ -101,13 +101,11 @@ def test_fd_gradients_match_jax():
 
 
 def test_fit_refuses_what_waits():
-    """Checkpoints name their ROADMAP item; the card is the default device
-    and is required."""
+    """The card is the default device and is required (checkpoints are
+    held in tests/test_torch_checkpoint.py)."""
     jscene, jcam = _simple_scene()
     scene, camera = _cross(jscene, jcam)
     target = torch.zeros((4, 4, 3))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        fit(scene, camera, target, 4, 4, steps=1, checkpoint_path="x", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fit(scene, camera, target, 4, 4, steps=1)

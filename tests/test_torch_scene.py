@@ -151,9 +151,9 @@ def test_texture_wrap_and_offsets_match_jax():
 
 
 def test_mesh_scenes_name_their_roadmap_item():
-    """The mesh scenes of ROADMAP.md Queue 1 item 8 build now (their
-    fields are held to JAX's in tests/test_torch_mesh.py); scene 5's asset
-    is absent upstream, as in the JAX package."""
+    """The mesh scenes 0, 2, 3 and 4 build (their fields are held to
+    JAX's in tests/test_torch_mesh.py); scene 5's asset is absent
+    upstream, as in the JAX package."""
     for index, name in ((0, "manAndBall"), (2, "bunnyAndBall"), (3, "teapotAndBall"),
                         (4, "teapotAndBallCircle")):
         built = scenes.build_scene(index, "cpu")

@@ -1,14 +1,16 @@
 """Inverse rendering: recover scene parameters from a target image.
 
 Counterpart of ``zraytrace_tpu/inverse.py``: gradient descent on the float
-leaves of ``Scene`` through ``render_diff``. The sharded training step
-(``make_sharded_train_step``) waits for the port of the distributed paths
-(ROADMAP.md Queue 1, item 12), and fit checkpoints for ``checkpoint.py``
-(item 9).
+leaves of ``Scene`` through ``render_diff``, with checkpoints that resume a
+fit (``checkpoint.py``), and the training step split over the ranks of a
+``("data", "sample")`` mesh (``make_sharded_train_step``): pixels over
+``data``, samples over ``sample``, the parameters' gradients all-reduced
+so that every rank takes the same Adam step.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -107,7 +109,7 @@ class FitResult(NamedTuple):
 def fit(scene_init: Scene, camera: cam.Camera, target, width: int, height: int, spp: int = 4,
         max_depth: int = 4, steps: int = 100, learning_rate: float = 1e-2, seed: int = 42,
         optimize_fields: tuple = DIFF_FIELDS, fd_fields: tuple = (), checkpoint_path=None,
-        edge_eps=None, coarse_to_fine: float = 1.0,
+        checkpoint_every: int = 10, edge_eps=None, coarse_to_fine: float = 1.0,
         edge_screen: bool = False, device="cuda") -> FitResult:
     """Gradient-descend scene parameters toward a target image on
     ``device`` (``zraytrace_tpu/inverse.py:129``).
@@ -123,11 +125,13 @@ def fit(scene_init: Scene, camera: cam.Camera, target, width: int, height: int, 
     over the first 60% of the steps (1.0 = off). On a CUDA device a mesh of
     at least 64 triangles gets a BVH order from the initial vertices, so
     each step repacks planes and launches the winner and margin kernels.
-    ``checkpoint_path`` is not supported yet (it raises).
+    ``checkpoint_path``: save the live parameters, Adam's state, the step
+    and the losses every ``checkpoint_every`` steps and after the last,
+    and resume from the file if it exists (``checkpoint.py``). The
+    fingerprint covers the JAX package's fields (not the target); steps
+    join it only while the coarse-to-fine schedule is on, so a plain fit
+    can be extended by resuming with more steps.
     """
-    if checkpoint_path is not None:
-        raise NotImplementedError("fit checkpoints wait for the port of checkpoint.py "
-                                  "(ROADMAP.md Queue 1, item 9)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("fit(device='cuda') but no CUDA device is available")
@@ -158,7 +162,21 @@ def fit(scene_init: Scene, camera: cam.Camera, target, width: int, height: int, 
         return float(np.float32(coarse_to_fine ** (1.0 - frac)))
 
     losses = []
-    for i in range(steps):
+    start, fp = 0, ""
+    if checkpoint_path:
+        from zraytrace_tpu_torch.checkpoint import load_fit_checkpoint, scene_fingerprint
+
+        sched_on = coarse_to_fine != 1.0 and edge_eps is not None
+        fp = scene_fingerprint(static, camera, extra=(
+            width, height, spp, max_depth, seed, learning_rate, tuple(sorted(optimize_fields)),
+            tuple(sorted(fd_fields)), float(coarse_to_fine), repr(edge_eps), repr(edge_screen),
+            int(steps) if sched_on else -1))
+        resumed = load_fit_checkpoint(checkpoint_path, params, opt, fp)
+        if resumed is not None:
+            start, saved = resumed
+            losses = [torch.tensor(float(v), device=device) for v in saved]
+
+    for i in range(start, steps):
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(params, eps_scale_at(i))
         loss.backward()
@@ -170,5 +188,126 @@ def fit(scene_init: Scene, camera: cam.Camera, target, width: int, height: int, 
                     params[f].grad = g
         opt.step()
         losses.append(loss.detach())
+        if checkpoint_path and ((i + 1) % checkpoint_every == 0 or i + 1 == steps):
+            from zraytrace_tpu_torch.checkpoint import save_fit_checkpoint
+
+            save_fit_checkpoint(checkpoint_path, params, opt, i + 1, losses, fp)
     final = {f: v.detach() for f, v in params.items()}
     return FitResult(merge_scene(final, static), torch.stack(losses))
+
+
+def make_sharded_train_step(mesh, params: dict, static: dict, camera: cam.Camera, width: int,
+                            height: int, spp: int, max_depth: int, learning_rate: float = 1e-2,
+                            seed: int = 42, edge_eps=None, edge_screen: bool = False):
+    """One Adam step of ``make_loss_fn``'s loss split over ``mesh``
+    (``parallel.mesh.make_mesh``), the counterpart of the JAX package's
+    ``make_sharded_train_step`` (``zraytrace_tpu/inverse.py:277``).
+    Returns ``(step_fn, optimizer)``: ``step_fn(target)`` (the full image,
+    ``(H, W, 3)`` or ``(H*W, 3)``, on every rank) updates ``params``
+    (field -> leaf tensor on ``mesh.device``, requiring grad) in place and
+    returns the loss, the same on every rank. Collective: every rank of
+    the mesh calls it, with the same parameters.
+
+    Rank ``(i, j)`` traces pixels ``[i, i + 1) * H*W / n_data`` (which must
+    divide) for samples ``[j, j + 1) * spp / n_sample``, one sample after
+    another as ``render_diff`` does (``trace_paths``, with its REINFORCE
+    baseline: the running mean of the pixel's earlier samples; where
+    ``mat_ior`` is trained through a dielectric on several sample ranks,
+    a no-grad pass first sums the earlier ranks' samples). The partial
+    image is summed over ``sample`` by the differentiable all-reduce
+    (``torch.distributed.nn.functional.all_reduce``, whose backward sums
+    the sample ranks' gradients of the image), the squared error over
+    ``data``. Each rank's loss is its share divided by the sample count,
+    so that the parameter gradients, all-reduced over every rank, are
+    the gradient of the whole loss and not ``n_sample`` times it; Adam
+    then steps identically everywhere. On the card a mesh of at least 64
+    triangles repacks planes in a BVH order each step, so the winner pass
+    and, with ``edge_eps``, the margin selection launch their kernels.
+    """
+    import torch.distributed as dist
+    from torch.distributed.nn.functional import all_reduce as all_reduce_diff
+
+    from zraytrace_tpu_torch import vecmath as vm
+    from zraytrace_tpu_torch.parallel.mesh import DATA_AXIS, SAMPLE_AXIS, check_replicated
+    from zraytrace_tpu_torch.render_diff import trace_paths
+    from zraytrace_tpu_torch.scene import DIELECTRIC
+
+    n_pixels = width * height
+    n_data, n_sample = mesh.shape[DATA_AXIS], mesh.shape[SAMPLE_AXIS]
+    if n_pixels % n_data or spp % n_sample:
+        raise ValueError(f"{n_pixels} pixels and {spp} spp must divide over the "
+                         f"{n_data}x{n_sample} mesh")
+    dev = mesh.device
+    p_l, s_l = n_pixels // n_data, spp // n_sample
+    d_i, s_i = mesh.coords
+    pixel_ids = torch.arange(d_i * p_l, (d_i + 1) * p_l, dtype=torch.int32, device=dev)
+    data_group, sample_group = mesh.group(DATA_AXIS), mesh.group(SAMPLE_AXIS)
+    check_replicated(list(params.values()), "parameters")
+    optimizer = torch.optim.Adam(list(params.values()), lr=learning_rate,
+                                 betas=(0.9, 0.999), eps=1e-8)
+
+    first = merge_scene({f: v.detach() for f, v in params.items()}, static)
+    tri_order = None
+    if first.n_triangles >= MESH_FAST_MIN_TRIANGLES and dev.type == "cuda":
+        from zraytrace_tpu_torch.geometry.bvh import build_tri_bvh
+
+        tri_order = build_tri_bvh(first.tri_a, first.tri_b, first.tri_c).prim_order.to(dev)
+        check_replicated([tri_order], "BVH orders")
+    ior = params.get("mat_ior")
+    prefix_pass = (n_sample > 1 and ior is not None and ior.requires_grad
+                   and bool((first.mat_type == DIELECTRIC).any()))
+
+    def radiance(scene, tf, k, baseline):
+        sample_ids = torch.full((p_l,), k, dtype=torch.int32, device=dev)
+        return trace_paths(scene, camera, pixel_ids, sample_ids, seed, width, height, max_depth,
+                           edge_eps=edge_eps, mesh_fast=True if tf is not None else None,
+                           tri_flash=tf, branch_grad=True, score_baseline=baseline,
+                           edge_screen=edge_screen)
+
+    def step_fn(target):
+        target = torch.as_tensor(target, dtype=torch.float32, device=dev).reshape(n_pixels, 3)
+        target_local = target[d_i * p_l:(d_i + 1) * p_l]
+        optimizer.zero_grad(set_to_none=True)
+        scene = merge_scene(params, static)
+        tf = None
+        if tri_order is not None:
+            from zraytrace_tpu_torch.ops.flash_intersect import pack_tri_planes
+
+            with torch.no_grad():
+                tf = pack_tri_planes(scene.tri_a.detach(), scene.tri_b.detach(),
+                                     scene.tri_c.detach(), order=tri_order)
+        stop_total = torch.zeros((p_l, 3), dtype=torch.float32, device=dev)
+        if prefix_pass:
+            # the REINFORCE baseline of sample k is the mean of samples < k:
+            # sum the earlier sample ranks' detached radiance first
+            mine = torch.zeros((n_sample, p_l, 3), dtype=torch.float32, device=dev)
+            if s_i < n_sample - 1:
+                with torch.no_grad():
+                    for k in range(s_i * s_l, (s_i + 1) * s_l):
+                        mine[s_i] += radiance(scene, tf, k, None)
+            dist.all_reduce(mine, group=sample_group)
+            for j in range(s_i):
+                stop_total = stop_total + mine[j]
+        total = torch.zeros((p_l, 3), dtype=torch.float32, device=dev)
+        for k in range(s_i * s_l, (s_i + 1) * s_l):
+            r = radiance(scene, tf, k, vm.div(stop_total, max(float(k), 1.0)))
+            total = total + r
+            stop_total = stop_total + r.detach()
+        if n_sample > 1:
+            with warnings.catch_warnings():  # deprecated for torch.compile, not for autograd
+                warnings.simplefilter("ignore", FutureWarning)
+                total = all_reduce_diff(total, group=sample_group)
+        img = vm.div(total, float(spp))
+        sq = ((img - target_local) ** 2).sum()
+        (sq / float(3 * n_pixels * n_sample)).backward()
+        grads = [p.grad for p in params.values() if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat)  # one collective for every parameter's gradient
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
+        optimizer.step()
+        loss = sq.detach().clone()
+        dist.all_reduce(loss, group=data_group)
+        return loss / float(3 * n_pixels)
+
+    return step_fn, optimizer
