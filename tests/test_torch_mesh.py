@@ -290,7 +290,7 @@ def test_render_mesh_matches_jax_render(jax_teapot):
     """render() on the CPU takes the brute-force route, as the JAX
     package's render() does off the TPU."""
     scene, camera = _cross(jax_teapot.scene, jax_teapot.camera)
-    assert mesh_routing(scene, "cpu") is None
+    assert mesh_routing(scene, "cpu") == (True, None)
     jimg, jst = jax_render(jax_teapot.scene, jax_teapot.camera,
                            JaxParams(width=20, height=12, samples_per_pixel=2, max_depth=4,
                                      use_pallas=False))
@@ -312,8 +312,10 @@ def test_flash_pack_cached_memoizes(teapot_run):
 def test_cuda_mesh_mode_refuses_a_textured_mesh(teapot_run):
     """The bounce kernel's mesh mode shades from the const-material attrs
     table. A mesh with an image-textured material has none: the check the
-    CUDA path runs before it launches raises and names the ROADMAP item,
-    while the CPU path renders the scene through the brute force."""
+    kernel's wrapper runs before it launches raises and says that
+    ``render()`` routes around it (``render.mesh_routing`` sends such a
+    mesh to the wavefront with the flash winner on the card), while the
+    CPU path renders the scene through the brute force."""
     b = SceneBuilder()
     img = (np.arange(4 * 8 * 3).reshape(4, 8, 3) % 7).astype(np.float32) / 6.0
     b.add_sphere((0.0, -100.5, -1.0), 100.0, b.add_lambertian_color((0.5, 0.5, 0.5)))
@@ -324,7 +326,7 @@ def test_cuda_mesh_mode_refuses_a_textured_mesh(teapot_run):
     planes = flash_pack_cached(scene)
     assert planes.attrs is None
     for tf in (planes, None):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 5"):
+        with pytest.raises(NotImplementedError, match="render.mesh_routing sends a mesh"):
             bk.check_mesh(scene, tf)
     teapot = teapot_run[0]
     bk.check_mesh(teapot, flash_pack_cached(teapot))  # const materials pass

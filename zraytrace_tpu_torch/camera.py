@@ -28,14 +28,31 @@ class Camera(NamedTuple):
         return torch.cat(list(self)).to(torch.float32)
 
 
+def _host_f32(v) -> torch.Tensor:
+    """``v`` as an f32 tensor on the host. A tensor keeps its autograd
+    graph (``Tensor.to`` is differentiable); anything else goes through
+    numpy."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device="cpu", dtype=torch.float32)
+    return torch.as_tensor(np.asarray(v, np.float32))
+
+
 def make_camera(look_from, look_at, vup, vfov_degrees, aspect_ratio,
                 device="cuda") -> Camera:
     """Build the camera frame (camera.zig:17-45), in f32 like the JAX
     reference (``h`` is ``tan`` of an f32 angle). Computed on the host,
-    so every device gets the same frame, then moved to ``device``."""
-    f32 = lambda v: torch.as_tensor(np.asarray(v, np.float32))
-    look_from, look_at, vup = f32(look_from), f32(look_at), f32(vup)
-    theta = f32(math.pi * vfov_degrees / 180.0)
+    so every device gets the same frame, then moved to ``device``.
+
+    Differentiable, like the JAX function: ``look_from``, ``look_at``,
+    ``vup`` and ``vfov_degrees`` may be tensors that require grad, and
+    the frame carries their graph. A number ``vfov_degrees`` is turned
+    into its angle in f64 and rounded once; a tensor one in f32.
+    """
+    look_from, look_at, vup = _host_f32(look_from), _host_f32(look_at), _host_f32(vup)
+    if isinstance(vfov_degrees, torch.Tensor):
+        theta = _host_f32(vfov_degrees) * math.pi / 180.0
+    else:
+        theta = _host_f32(math.pi * vfov_degrees / 180.0)
     h = torch.tan(theta / 2.0)
     viewport_height = 2.0 * h
     viewport_width = aspect_ratio * viewport_height

@@ -232,17 +232,19 @@ def render_checkpointed(scene: Scene, camera: cam.Camera, params: RenderParams, 
     samples, resuming from it if present. Returns ``(image (H, W, 3) f32
     CPU tensor, RenderStats)``.
 
-    Each chunk is one ``bounce_trace`` over ``render()``'s lanes and slots
-    from ``sample_start = done``: on a CUDA device the bounce kernel
-    (mesh scenes in its mesh mode, over planes made once per mesh), on
+    Each chunk is one trace of ``render()``'s lanes and slots from
+    ``sample_start = done`` through ``render()``'s route
+    (``render.mesh_routing``): on a CUDA device the bounce kernel (mesh
+    scenes in its mesh mode, over planes made once per mesh; a mesh with
+    image-textured materials in the wavefront with the flash kernel), on
     the CPU the plain wavefront. The chunk's f32 slot sums are added on
     the host into f64 pixel sums, its counters into exact integers. A
     resumed run equals an uninterrupted one at the same chunking bit for
     bit; against ``render()`` the counters are equal, the image differs by
     the order of the adds. ``wavefront_iterations`` sums the chunks'.
     """
-    from zraytrace_tpu_torch.ops.bounce_kernel import bounce_trace, library
-    from zraytrace_tpu_torch.render import mesh_routing
+    from zraytrace_tpu_torch.ops.bounce_kernel import library
+    from zraytrace_tpu_torch.render import mesh_routing, trace_route
 
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -259,15 +261,14 @@ def render_checkpointed(scene: Scene, camera: cam.Camera, params: RenderParams, 
     camera = camera.to(device)
     fp = scene_fingerprint(scene, camera, extra=(chunk_spp, _engine(device), n_lanes, n_slots))
     pixel_sum, counters, done = _restore_or_init(path, fp, params, n)
-    tri_flash = mesh_routing(scene, device)
+    route = mesh_routing(scene, device)
     base = torch.arange(n_lanes, dtype=torch.int32, device=device)
 
     t0 = time.perf_counter()
     while done < params.samples_per_pixel:
         step = _chunk_step(params.samples_per_pixel, done, chunk_spp)
-        sums, cnt = bounce_trace(scene, camera, base, params.seed, w, h, step,
-                                 params.max_depth, done, n_lanes, n, n_slots,
-                                 tri_flash=tri_flash)
+        sums, cnt = trace_route(route, scene, camera, base, params.seed, w, h, step,
+                                params.max_depth, done, n_lanes, n, n_slots)
         counters = [a + b for a, b in zip(counters, cnt.cpu().tolist())]
         pixel_sum += sums.reshape(n_slots * n_lanes, 3)[:n].cpu().numpy().astype(np.float64)
         done += step

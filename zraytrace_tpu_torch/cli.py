@@ -4,11 +4,14 @@ Positional argument order matches the reference binary (main.zig:16):
 ``width height samples depth scene_index filename``; scenes 0-4 render
 (5, goat, needs an asset that is absent upstream). Renders on the CUDA
 device; ``--cpu`` renders with the plain PyTorch wavefront on the host.
+With ``ZRAYTRACE_TRACE_DIR`` set, the render runs under a
+``torch.profiler`` trace written there (``profiling.torch_trace``).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 
@@ -25,6 +28,10 @@ def main(argv=None) -> int:
     parser.add_argument("scene_index", type=int)
     parser.add_argument("filename")
     parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--no-bvh", action="store_true",
+                        help="disable the BVH (raytrace.zig:102-108 flag); as in the JAX "
+                             "package at its default bvh_min_triangles, the image and "
+                             "counters do not change")
     parser.add_argument("--ppm", action="store_true",
                         help="also write a P3 PPM next to the PNG")
     parser.add_argument("--cpu", action="store_true",
@@ -34,7 +41,7 @@ def main(argv=None) -> int:
     from zraytrace_tpu_torch.config import RenderParams
     from zraytrace_tpu_torch.io.png import write_png
     from zraytrace_tpu_torch.io.ppm import write_ppm
-    from zraytrace_tpu_torch.profiling import PhaseTimer, print_render_report
+    from zraytrace_tpu_torch.profiling import PhaseTimer, print_render_report, torch_trace
     from zraytrace_tpu_torch.render import render
     from zraytrace_tpu_torch.scenes import build_scene
 
@@ -44,6 +51,7 @@ def main(argv=None) -> int:
         height=args.height,
         samples_per_pixel=args.samples,
         max_depth=args.depth,
+        bvh=not args.no_bvh,
         seed=args.seed,
     )
     timer = PhaseTimer()
@@ -55,8 +63,9 @@ def main(argv=None) -> int:
     print(f" - Samples per pixel: {params.samples_per_pixel}", file=sys.stderr)
     print(f" - Recursion depth:   {params.max_depth}", file=sys.stderr)
 
-    with timer.span("render"):
-        image, stats = render(built.scene, built.camera, params, device)
+    with torch_trace(os.environ.get("ZRAYTRACE_TRACE_DIR")):
+        with timer.span("render"):
+            image, stats = render(built.scene, built.camera, params, device)
     with timer.span("image write"):
         write_png(args.filename, image.numpy())
         if args.ppm:

@@ -57,20 +57,26 @@ class KernelCall(NamedTuple):
     t_min: float
 
 
-def pose_image(base, camera, order, off, eps: float, screen: bool = False,
-               occlusion=False):
-    """The pose fit's image of ``base`` moved by ``off``, its planes
-    repacked in the BVH ``order`` with no gradient from the moved
-    vertices."""
+def pose_image(base, camera, order, off, eps: float | None, screen: bool = False,
+               occlusion=False, width: int | None = None, height: int | None = None,
+               spp: int | None = None, depth: int | None = None, pair: bool = True):
+    """The pose fit's image of ``base`` moved by ``off`` (each of width,
+    height, spp and depth ``POSE``'s unless given), its planes repacked
+    in the BVH ``order`` with no gradient from the moved vertices; edge
+    factors at ``(eps, 2 eps)`` (``eps`` alone without ``pair``), none
+    for ``eps=None``."""
+    width, height, spp, depth = (POSE[k] if v is None else v for k, v in (
+        ("width", width), ("height", height), ("spp", spp), ("depth", depth)))
     dev = off.device
     scene = transform_triangles(base, Pose(off, torch.zeros(3, device=dev),
                                            torch.ones((), device=dev)))
     with torch.no_grad():
         planes = fi.pack_tri_planes(scene.tri_a.detach(), scene.tri_b.detach(),
                                     scene.tri_c.detach(), order=order)
-    return render_diff(scene, camera, POSE["width"], POSE["height"], POSE["spp"],
-                       POSE["depth"], seed=SEED, mesh_fast=True, tri_flash=planes,
-                       edge_eps=(eps, 2.0 * eps), edge_occlusion=occlusion, edge_screen=screen)
+    return render_diff(scene, camera, width, height, spp, depth, seed=SEED, mesh_fast=True,
+                       tri_flash=planes,
+                       edge_eps=(eps, 2.0 * eps) if pair and eps is not None else eps,
+                       edge_occlusion=occlusion, edge_screen=screen)
 
 
 @contextlib.contextmanager

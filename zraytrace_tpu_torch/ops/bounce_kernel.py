@@ -135,12 +135,15 @@ def sphere_rows(spheres: torch.Tensor) -> torch.Tensor:
 def check_mesh(scene: Scene, tri_flash: TriPlanes | None) -> None:
     """What the kernel's mesh mode takes: the scene's flash planes with
     the const-material ``attrs`` table. A mesh whose materials read an
-    image texture has none and raises (ROADMAP.md Queue 1, item 5)."""
+    image texture has none and raises: ``render()`` routes such a mesh to
+    the wavefront with the flash kernel instead (``render.mesh_routing``);
+    filling its texels in the mesh mode is ROADMAP.md's Queue 2 item R14."""
     if tri_flash is None or tri_flash.attrs is None:
         raise NotImplementedError(
             "the kernel's mesh mode shades const-material meshes from the flash planes' "
-            "attrs table (pack_tri_planes(..., const_materials=True)); image-textured "
-            "triangle materials on the card wait (ROADMAP.md Queue 1, item 5)")
+            "attrs table (pack_tri_planes(..., const_materials=True)); render.mesh_routing "
+            "sends a mesh with image-textured materials to the wavefront with the flash "
+            "kernel instead")
     if tri_flash.n_tris != scene.n_triangles:
         raise ValueError("tri_flash does not hold this scene's triangles")
 

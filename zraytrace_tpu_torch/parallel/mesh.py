@@ -8,8 +8,10 @@ own copy. Collectives are ``torch.distributed``'s (NCCL between cards,
 gloo between ranks that share one).
 
 Each rank traces a contiguous slice of ``render()``'s lanes with the same
-pixel stride, through the same ``bounce_trace`` (on the card the bounce
-kernel, in mesh mode for mesh scenes), so a lane traces the pixels it
+pixel stride, through the same route (``render.mesh_routing``: on the card
+the bounce kernel, in mesh mode for mesh scenes, or for a mesh with
+image-textured materials the wavefront with the flash kernel), so a lane
+traces the pixels it
 would trace in ``render()``, in the same order: with one sample shard the
 image equals ``render()``'s bit for bit. Padding lanes (when the lanes do
 not divide over ``data``) idle from the start, so counters are exact.
@@ -126,8 +128,8 @@ def sharded_sums(scene: Scene, camera: cam.Camera, params: RenderParams, mesh: M
     (the all-reduces, to the counters on the host) and ``fetch``.
     Event counters sum over the ranks; ``wavefront_iterations`` is the
     largest rank's, as in ``render()`` the longest lane's."""
-    from zraytrace_tpu_torch.ops.bounce_kernel import bounce_trace, library
-    from zraytrace_tpu_torch.render import mesh_routing
+    from zraytrace_tpu_torch.ops.bounce_kernel import library
+    from zraytrace_tpu_torch.render import mesh_routing, trace_route
 
     n_data, n_sample = mesh.shape[DATA_AXIS], mesh.shape[SAMPLE_AXIS]
     w, h, spp = params.width, params.height, params.samples_per_pixel
@@ -145,17 +147,17 @@ def sharded_sums(scene: Scene, camera: cam.Camera, params: RenderParams, mesh: M
     d, s = mesh.coords
     scene = scene.to(dev)
     camera = camera.to(dev)
-    tri_flash = mesh_routing(scene, dev)
-    if tri_flash is not None:
-        check_replicated([x for x in tri_flash if isinstance(x, torch.Tensor)],
+    route = mesh_routing(scene, dev)
+    if route.tri_flash is not None:
+        check_replicated([x for x in route.tri_flash if isinstance(x, torch.Tensor)],
                          "flash planes")
     base = torch.arange(d * per, (d + 1) * per, dtype=torch.int32, device=dev)
     base[base >= n_lanes] = n_pixels  # padding lanes: no pixel, idle from the start
 
     t1 = time.perf_counter()
-    sums, counters = bounce_trace(
-        scene, camera, base, params.seed, w, h, spp_local, params.max_depth,
-        sample_start + s * spp_local, n_lanes, n_pixels, n_slots, tri_flash=tri_flash)
+    sums, counters = trace_route(
+        route, scene, camera, base, params.seed, w, h, spp_local, params.max_depth,
+        sample_start + s * spp_local, n_lanes, n_pixels, n_slots)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t2 = time.perf_counter()

@@ -22,6 +22,7 @@ import dataclasses
 import hashlib
 import math
 import time
+from typing import TYPE_CHECKING, NamedTuple
 
 import torch
 
@@ -39,6 +40,9 @@ from zraytrace_tpu_torch.geometry.sphere import (
 )
 from zraytrace_tpu_torch.geometry.triangle import intersect_triangles, triangle_surface
 from zraytrace_tpu_torch.scene import Scene, mesh_materials_const
+
+if TYPE_CHECKING:
+    from zraytrace_tpu_torch.ops.flash_intersect import TriPlanes
 
 # Counter slots, mirroring Progress (raytrace.zig:20-34), plus iteration
 # telemetry: the number of lockstep wavefront steps, which equals the
@@ -299,15 +303,55 @@ def flash_pack_cached(scene: Scene):
     return planes
 
 
-def mesh_routing(scene: Scene, device):
-    """The triangle route of ``render()`` (``mesh_routing``,
-    ``zraytrace_tpu/render.py:576``): flash planes for a mesh scene on a
-    CUDA device, where the bounce kernel's mesh mode reads them; ``None``
-    on the CPU, where the plain wavefront uses the brute force, as the
-    JAX package does off the TPU."""
+class MeshRoute(NamedTuple):
+    """The engine ``render()`` traces a scene's lanes with, as
+    ``mesh_routing`` resolves it: ``kernel`` True for ``bounce_trace``
+    (the bounce kernel on the card, in mesh mode for a mesh scene; the
+    plain wavefront on the CPU), False for ``wavefront_trace`` with the
+    flash winner over ``tri_flash`` (on the card the flash kernel, every
+    bounce). ``tri_flash``: the scene's BVH-ordered flash planes, or None
+    (no mesh, or the CPU, where the plain wavefront takes the brute
+    force)."""
+
+    kernel: bool
+    tri_flash: TriPlanes | None
+
+
+def mesh_routing(scene: Scene, device) -> MeshRoute:
+    """The route of ``render()``, ``render_checkpointed`` and
+    ``sharded_sums`` (``mesh_routing``, ``zraytrace_tpu/render.py:576``),
+    decided from the scene's materials before any launch:
+
+    - no mesh: the bounce kernel in sphere mode;
+    - on a CUDA device, a mesh whose materials are all constant colours:
+      the bounce kernel's mesh mode, which shades from the planes'
+      ``attrs`` table;
+    - on a CUDA device, a mesh whose materials read an image texture:
+      those planes have no ``attrs`` table, which the mesh mode needs, so
+      the wavefront with the flash winner, whose uv the texel fetch
+      reads, as the JAX package sends such a mesh to its XLA wavefront
+      and the Pallas flash kernel;
+    - on the CPU: the plain wavefront with the brute force, as the JAX
+      package does off the TPU.
+    """
     if scene.n_triangles == 0 or torch.device(device).type != "cuda":
-        return None
-    return flash_pack_cached(scene)
+        return MeshRoute(True, None)
+    planes = flash_pack_cached(scene)
+    return MeshRoute(planes.attrs is not None, planes)
+
+
+def trace_route(route: MeshRoute, scene: Scene, camera: cam.Camera, pixel_base, seed, width,
+                height, spp, max_depth, sample_start=0, pixel_stride=None, n_pixels=None,
+                n_slots: int = 1):
+    """Trace lanes as ``wavefront_trace`` does, through ``route``'s
+    engine: ``(slot_sums (n_slots, N, 3) f32, counters (6,) int64)``."""
+    args = (scene, camera, pixel_base, seed, width, height, spp, max_depth, sample_start,
+            pixel_stride, n_pixels, n_slots)
+    if route.kernel:
+        from zraytrace_tpu_torch.ops.bounce_kernel import bounce_trace
+
+        return bounce_trace(*args, tri_flash=route.tri_flash)
+    return wavefront_trace(*args, tri_flash=route.tri_flash)
 
 
 def render(scene: Scene, camera: cam.Camera, params: RenderParams, device="cuda"):
@@ -316,11 +360,15 @@ def render(scene: Scene, camera: cam.Camera, params: RenderParams, device="cuda"
 
     Row 0 of the image is the *bottom* (the PNG writer flips). On a CUDA
     device the bounce loop runs in the CUDA kernel (mesh scenes in its
-    mesh mode, over the BVH walk's tables made once per mesh); on the CPU
-    in the plain wavefront, only when the caller asks for it. Without a
-    card the default device raises.
+    mesh mode, over the BVH walk's tables made once per mesh; a mesh with
+    image-textured materials in the wavefront, whose every bounce launches
+    the flash kernel: ``mesh_routing``); on the CPU in the plain
+    wavefront, only when the caller asks for it. Without a card the
+    default device raises. ``params.bvh`` changes nothing, as in the JAX
+    package at its default ``bvh_min_triangles``: every mesh route here
+    already walks a BVH or its BVH-ordered chunks.
     """
-    from zraytrace_tpu_torch.ops.bounce_kernel import bounce_trace, library
+    from zraytrace_tpu_torch.ops.bounce_kernel import library
 
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -334,13 +382,12 @@ def render(scene: Scene, camera: cam.Camera, params: RenderParams, device="cuda"
     n_slots = math.ceil(n_pixels / n_lanes)
     scene = scene.to(device)
     camera = camera.to(device)
-    tri_flash = mesh_routing(scene, device)
+    route = mesh_routing(scene, device)
     base = torch.arange(n_lanes, dtype=torch.int32, device=device)
 
     t1 = time.perf_counter()
-    sums, counters = bounce_trace(
-        scene, camera, base, params.seed, w, h, spp, params.max_depth,
-        0, n_lanes, n_pixels, n_slots, tri_flash=tri_flash)
+    sums, counters = trace_route(route, scene, camera, base, params.seed, w, h, spp,
+                                 params.max_depth, 0, n_lanes, n_pixels, n_slots)
     totals = counters.cpu().tolist()  # waits for the device
     t_dev = time.perf_counter()
     # pixel p lives at (slot p // n_lanes, lane p % n_lanes)
