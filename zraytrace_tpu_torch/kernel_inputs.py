@@ -6,7 +6,9 @@ another's on the same inputs:
 
 - the teapot pose fit's configuration (``tools/diff_bench.py``
   ``teapot_pose_fit``: 64x64, 8 spp, depth 4, ``edge_eps=(0.015, 0.03)``,
-  from the offset ``POSE_START``) and its image (``pose_image``);
+  from the offset ``POSE_START``), its image (``pose_image``), loss
+  (``pose_loss``) and Adam step (``pose_adam_step``), the step that
+  ``chip_smoke.py`` phase 10 checks and ``tools/diff_bench.py`` times;
 - ``recorded_calls``: every call of the two kernels' wrappers, with its
   inputs, and optionally CUDA events around it; ``pose_step_calls``: those
   of one pose step's forward (32 of each kernel, 4,096 lanes);
@@ -34,14 +36,16 @@ from zraytrace_tpu_torch.render_diff import render_diff
 from zraytrace_tpu_torch.scenes import teapot_on_ground
 from zraytrace_tpu_torch.transforms import Pose, transform_triangles
 
-__all__ = ["SEED", "T_MIN", "POSE", "POSE_EPS", "POSE_START", "KernelCall", "pose_image",
-           "recorded_calls", "launch", "pose_step_calls", "scene3_rays", "margin_rays"]
+__all__ = ["SEED", "T_MIN", "POSE", "POSE_EPS", "POSE_START", "POSE_LR", "KernelCall",
+           "pose_image", "pose_loss", "pose_adam_step", "recorded_calls", "launch",
+           "pose_step_calls", "scene3_rays", "margin_rays"]
 
 SEED = 42
 T_MIN = 1e-3
 POSE = dict(width=64, height=64, spp=8, depth=4)  # teapot_pose_fit
 POSE_EPS = 0.015  # edge_eps (eps, 2 eps)
 POSE_START = (0.25, -0.18, 0.22)
+POSE_LR = 2e-2  # Adam's learning rate
 # the flash module's wrapper of each kernel
 WRAPPERS = {"flash_intersect": "flash_intersect_triangles",
             "flash_margins": "flash_margin_select"}
@@ -77,6 +81,32 @@ def pose_image(base, camera, order, off, eps: float | None, screen: bool = False
                        tri_flash=planes,
                        edge_eps=(eps, 2.0 * eps) if pair and eps is not None else eps,
                        edge_occlusion=occlusion, edge_screen=screen)
+
+
+def pose_loss(base, camera, order, off, target, **dims):
+    """The pose fit's loss: the mean squared difference of ``pose_image``
+    at ``off`` (edge factors at ``(POSE_EPS, 2 POSE_EPS)``) from
+    ``target``; ``dims`` as ``pose_image``'s."""
+    return ((pose_image(base, camera, order, off, POSE_EPS, **dims) - target) ** 2).mean()
+
+
+def pose_adam_step(base, camera, order, target, **dims):
+    """One Adam step of the pose fit from ``POSE_START`` (optax's
+    ``adam`` at ``POSE_LR``: betas (0.9, 0.999), eps 1e-8), on state of
+    its own. Returns ``(step, off)``: ``step()`` takes a step and returns
+    its loss, and leaves its gradient in ``off.grad``."""
+    off = torch.tensor(POSE_START, dtype=torch.float32, device=target.device,
+                       requires_grad=True)
+    opt = torch.optim.Adam([off], lr=POSE_LR, betas=(0.9, 0.999), eps=1e-8)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = pose_loss(base, camera, order, off, target, **dims)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return step, off
 
 
 @contextlib.contextmanager

@@ -354,6 +354,46 @@ def trace_route(route: MeshRoute, scene: Scene, camera: cam.Camera, pixel_base, 
     return wavefront_trace(*args, tri_flash=route.tri_flash)
 
 
+class Lanes(NamedTuple):
+    """``render()``'s layout of a ``width`` x ``height`` image on the
+    wavefront's lanes: lane i starts at pixel ``base[i] = i``, and pixel p
+    lives at (slot ``p // n_lanes``, lane ``p % n_lanes``)."""
+
+    width: int
+    height: int
+    n_lanes: int
+    n_slots: int
+    base: torch.Tensor
+
+    @property
+    def n_pixels(self) -> int:
+        return self.width * self.height
+
+
+def lanes(width: int, height: int, max_wavefront: int, device) -> Lanes:
+    """``min(n_pixels, max_wavefront)`` lanes on ``device``, as many
+    slots as it takes to cover the image."""
+    n_pixels = width * height
+    n_lanes = min(n_pixels, max_wavefront)
+    return Lanes(width, height, n_lanes, math.ceil(n_pixels / n_lanes),
+                 torch.arange(n_lanes, dtype=torch.int32, device=device))
+
+
+def trace_lanes(route: MeshRoute, scene: Scene, camera: cam.Camera, lay: Lanes, seed, spp,
+                max_depth, sample_start=0):
+    """Samples ``[sample_start, sample_start + spp)`` of every pixel of
+    ``lay`` through ``route``'s engine: ``trace_route``'s result."""
+    return trace_route(route, scene, camera, lay.base, seed, lay.width, lay.height, spp,
+                       max_depth, sample_start, lay.n_lanes, lay.n_pixels, lay.n_slots)
+
+
+def decode(sums: torch.Tensor, lay: Lanes, spp: int) -> torch.Tensor:
+    """The image of ``trace_lanes``' sums over ``spp`` samples: ``(H, W,
+    3)`` f32 on the CPU, row 0 the bottom."""
+    flat = sums.reshape(lay.n_slots * lay.n_lanes, 3)[:lay.n_pixels].cpu()
+    return (flat / spp).reshape(lay.height, lay.width, 3)
+
+
 def render(scene: Scene, camera: cam.Camera, params: RenderParams, device="cuda"):
     """Render a full image on ``device``. Returns ``(image (H, W, 3) f32
     CPU tensor, RenderStats)``.
@@ -376,29 +416,23 @@ def render(scene: Scene, camera: cam.Camera, params: RenderParams, device="cuda"
     t0 = time.perf_counter()
     if device.type == "cuda":
         library()  # the first use builds the kernel: set-up, not render time
-    w, h, spp = params.width, params.height, params.samples_per_pixel
-    n_pixels = w * h
-    n_lanes = min(n_pixels, params.max_wavefront)
-    n_slots = math.ceil(n_pixels / n_lanes)
+    spp = params.samples_per_pixel
+    lay = lanes(params.width, params.height, params.max_wavefront, device)
     scene = scene.to(device)
     camera = camera.to(device)
     route = mesh_routing(scene, device)
-    base = torch.arange(n_lanes, dtype=torch.int32, device=device)
 
     t1 = time.perf_counter()
-    sums, counters = trace_route(route, scene, camera, base, params.seed, w, h, spp,
-                                 params.max_depth, 0, n_lanes, n_pixels, n_slots)
+    sums, counters = trace_lanes(route, scene, camera, lay, params.seed, spp, params.max_depth)
     totals = counters.cpu().tolist()  # waits for the device
     t_dev = time.perf_counter()
-    # pixel p lives at (slot p // n_lanes, lane p % n_lanes)
-    flat = sums.reshape(n_slots * n_lanes, 3)[:n_pixels].cpu()
-    image = (flat / spp).reshape(h, w, 3)
+    image = decode(sums, lay, spp)
     t2 = time.perf_counter()
 
     rays, refl, bg, rec, samples, iters = totals
     stats = RenderStats(
         rays=rays, reflections=refl, background_hits=bg,
-        recursion_depth_hits=rec, samples=samples, pixels=n_pixels,
+        recursion_depth_hits=rec, samples=samples, pixels=lay.n_pixels,
         wavefront_iterations=iters, preprocess_seconds=t1 - t0,
         render_seconds=t_dev - t1, transfer_seconds=t2 - t_dev)
     return image, stats

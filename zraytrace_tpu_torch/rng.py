@@ -9,6 +9,12 @@ No ``torch.Generator`` is needed anywhere on the render path: the hash
 has no state to carry, so any lane can draw the numbers of any
 (pixel, sample, bounce) in any order, on any device.
 
+The JAX package's ``uniform4_i32`` has no counterpart: it restructures
+``uniform4`` in int32 arithmetic because Mosaic lowers uint32 chains
+about 10x slower, and draws the same numbers; the CUDA kernels hash in
+``uint32_t``
+(``csrc/bounce_common.cuh``).
+
 torch has no complete uint32 arithmetic, so the hash runs on int64 holding
 values in ``[0, 2^32)``, masked after every add and multiply. A multiply
 is split into 16-bit halves so no intermediate leaves int64's range.
@@ -100,3 +106,14 @@ def random_unit_vector(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
     phi = (2.0 * math.pi) * u2
     r = vm.sqrt(torch.clamp(1.0 - z * z, min=0.0))
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def random_in_unit_sphere(u1: torch.Tensor, u2: torch.Tensor, u3: torch.Tensor) -> torch.Tensor:
+    """Uniform point inside the unit ball from three U[0,1) inputs, with no
+    rejection loop (``zraytrace_tpu/rng.py:143``; the reference rejects,
+    sample.zig:22-32): a random unit direction scaled by ``cbrt(u3)``, the
+    radius of the volumetric density. torch has no cube root; the f64
+    power rounded to f32 is the correctly rounded one (``vecmath.sqrt``'s
+    way)."""
+    r = torch.pow(u3.to(torch.float64), 1.0 / 3.0).to(u3.dtype)
+    return random_unit_vector(u1, u2) * r[..., None]
