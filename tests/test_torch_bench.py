@@ -106,7 +106,8 @@ def test_pass_matches_jax_wavefront(index, spp, depth):
 @pytest.mark.parametrize("max_wavefront", [1 << 20, 20], ids=["one_slot", "three_slots"])
 def test_pass_is_renders_code(max_wavefront):
     """A pass of samples [0, spp) on ``render.lanes`` is ``render()``:
-    the same counters and, through ``render.decode``, the same image."""
+    the same counters and, through ``render.fetch_sums`` and
+    ``render.decode``, the same image."""
     from zraytrace_tpu_torch.config import RenderParams
 
     w, h, spp, depth = 8, 6, 2, 3
@@ -120,7 +121,7 @@ def test_pass_is_renders_code(max_wavefront):
         max_wavefront=max_wavefront), CPU)
     assert got.counters[:5] == [stats.rays, stats.reflections, stats.background_hits,
                                 stats.recursion_depth_hits, stats.samples]
-    assert torch.equal(render.decode(got.sums, lay, spp), image)
+    assert torch.equal(render.decode(render.fetch_sums(got.sums, lay), lay, spp), image)
 
 
 # -- the JSON line ---------------------------------------------------------------

@@ -31,6 +31,7 @@ from zraytrace_tpu.scenes import teapot_and_ball as jax_teapot
 from zraytrace_tpu_torch.convert import tri_planes_from_numpy
 from zraytrace_tpu_torch.geometry.triangle import intersect_triangles
 from zraytrace_tpu_torch.ops import flash_intersect as fi
+from zraytrace_tpu_torch.profiling import counter
 
 import test_torch_winner_ties as ties
 
@@ -193,10 +194,10 @@ def test_t_init_seeding_and_id_modes(const):
 def test_dispatch_on_cpu_runs_the_plain_version():
     a, b, c, o, d = _soup(9, 200)
     planes = fi.pack_tri_planes(_t(a), _t(b), _t(c))
-    before = fi.LAUNCHES
+    before = counter("launch.flash")
     got = fi.flash_intersect_triangles(planes, _t(o), _t(d), T_MIN)
     want = fi.flash_intersect_plain(planes, _t(o), _t(d), T_MIN)
-    assert fi.LAUNCHES == before
+    assert counter("launch.flash") == before
     assert all(torch.equal(x, y) for x, y in zip(got, want))
     with pytest.raises(ValueError, match="cpu or cuda"):
         fi.flash_intersect_triangles(planes, _t(o).to("meta"), _t(d).to("meta"), T_MIN)

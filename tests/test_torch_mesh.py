@@ -34,7 +34,7 @@ from zraytrace_tpu_torch.convert import camera_from_numpy, scene_from_numpy
 from zraytrace_tpu_torch.geometry.bvh import build_tri_bvh
 from zraytrace_tpu_torch.io.obj import ObjParseError, read_obj
 from zraytrace_tpu_torch.ops import bounce_kernel as bk
-from zraytrace_tpu_torch.ops import flash_intersect as fi
+from zraytrace_tpu_torch.profiling import counter
 from zraytrace_tpu_torch.render import (
     flash_pack_cached,
     mesh_routing,
@@ -276,14 +276,15 @@ def test_flash_route_equals_brute_route(teapot_run):
 
 def test_bounce_trace_mesh_on_cpu_runs_the_plain_version(teapot_run):
     scene, camera, sums, counters = teapot_run
-    before = (bk.LAUNCHES, bk.MESH_LAUNCHES, fi.LAUNCHES)
+    names = ("launch.bounce", "launch.bounce_mesh", "launch.flash")
+    before = [counter(k) for k in names]
     base = torch.arange(256, dtype=torch.int32)
     for planes in (None, flash_pack_cached(scene)):
         s, c = bk.bounce_trace(scene, camera, base, 42, 16, 16, 2, 4, 0, 256, 256, 1,
                                tri_flash=planes)
         assert c.tolist() == counters
         np.testing.assert_array_equal(s.numpy(), sums)
-    assert (bk.LAUNCHES, bk.MESH_LAUNCHES, fi.LAUNCHES) == before
+    assert [counter(k) for k in names] == before
 
 
 def test_render_mesh_matches_jax_render(jax_teapot):

@@ -20,6 +20,7 @@ from zraytrace_tpu.scenes import three_balls as jax_three_balls
 from zraytrace_tpu_torch import RenderParams
 from zraytrace_tpu_torch.convert import camera_from_numpy, scene_from_numpy
 from zraytrace_tpu_torch.ops import bounce_kernel as bk
+from zraytrace_tpu_torch.profiling import counter
 from zraytrace_tpu_torch.render import render, wavefront_trace
 
 torch.set_num_threads(1)
@@ -130,10 +131,10 @@ def test_bounce_trace_on_cpu_runs_the_plain_version(built, plain_16):
     """On a CPU tensor the kernel's wrapper runs the plain wavefront and
     launches nothing."""
     _, scene, camera = built
-    before = bk.LAUNCHES
+    before = counter("launch.bounce")
     sums, counters = bk.bounce_trace(scene, camera, torch.arange(256, dtype=torch.int32),
                                      42, 16, 16, 2, 6, 0, 256, 256, 1)
-    assert bk.LAUNCHES == before
+    assert counter("launch.bounce") == before
     assert counters.tolist() == plain_16[1]
     np.testing.assert_array_equal(sums.numpy(), plain_16[0])
     assert bk.wavefront_trace_reference is wavefront_trace

@@ -23,8 +23,7 @@ from zraytrace_tpu.scene import SceneBuilder as JaxBuilder
 from zraytrace_tpu_torch import RenderParams
 from zraytrace_tpu_torch.checkpoint import render_checkpointed
 from zraytrace_tpu_torch.convert import camera_from_numpy, scene_from_numpy
-from zraytrace_tpu_torch.ops import bounce_kernel as bk
-from zraytrace_tpu_torch.ops import flash_intersect as fi
+from zraytrace_tpu_torch.profiling import counter
 from zraytrace_tpu_torch.render import MeshRoute, mesh_routing, render, trace_route
 
 torch.set_num_threads(1)
@@ -75,10 +74,10 @@ def test_textured_route_matches_jax_flash_wavefront():
     js, jc, scene, camera = _scene(True)
     route = mesh_routing(scene, "cuda")
     n = W * H
-    before = (bk.LAUNCHES, fi.LAUNCHES)
+    before = (counter("launch.bounce"), counter("launch.flash"))
     sums, counters = trace_route(route, scene, camera, torch.arange(n, dtype=torch.int32), 42,
                                  W, H, SPP, DEPTH, 0, n, n, 1)
-    assert (bk.LAUNCHES, fi.LAUNCHES) == before
+    assert (counter("launch.bounce"), counter("launch.flash")) == before
     order = jax_build_tri_bvh(js.tri_a, js.tri_b, js.tri_c).prim_order
     tf = jax_pack_tri_planes(js.tri_a, js.tri_b, js.tri_c, order=order, tri_mat=js.tri_mat,
                              const_materials=False)

@@ -15,7 +15,8 @@ Counterpart of ``bench.py`` (and, through ``--all``, of
   metrics ``diff_step_eff_rays_per_s_<workload>``.
 
 A render cell runs ``render()``'s own code (``render.lanes``,
-``render.mesh_routing``, ``render.trace_lanes`` and ``render.decode``) at
+``render.mesh_routing``, ``render.trace_lanes``, ``render.fetch_sums`` and
+``render.decode``) at
 a ``sample_start`` of its own: one untimed warm-up of sample 0, one
 untimed pass of samples ``[1, 1 + spp)``, then ``--repeats`` timed
 passes of the same range. Each pass is timed on the host clock from a
@@ -141,11 +142,14 @@ def render_engine(index: int, width: int, height: int, device) -> Engine:
 def run_pass(e: Engine, seed: int, spp: int, depth: int, sample_start: int) -> Pass:
     """Samples ``[sample_start, sample_start + spp)`` of every pixel
     through ``render.trace_lanes``, timed."""
-    from zraytrace_tpu_torch.ops import bounce_kernel as bk
+    from zraytrace_tpu_torch.profiling import counter
     from zraytrace_tpu_torch.render import trace_lanes
 
+    def launches():
+        return counter("launch.bounce"), counter("launch.bounce_mesh")
+
     dev = e.lay.base.device
-    before = bk.LAUNCHES, bk.MESH_LAUNCHES
+    before = launches()
     events = None
     if dev.type == "cuda":
         events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -160,8 +164,8 @@ def run_pass(e: Engine, seed: int, spp: int, depth: int, sample_start: int) -> P
     totals = counters.cpu().tolist()  # waits for the device
     seconds = time.perf_counter() - t0
     device_ms = events[0].elapsed_time(events[1]) if events else None
-    return Pass(totals, seconds, device_ms,
-                (bk.LAUNCHES - before[0], bk.MESH_LAUNCHES - before[1]), sums)
+    after = launches()
+    return Pass(totals, seconds, device_ms, (after[0] - before[0], after[1] - before[1]), sums)
 
 
 def median_pass(passes: list) -> int:
@@ -200,7 +204,8 @@ def render_checks(e: Engine, cell: RenderCell, spp: int, depth: int, first: Pass
                   passes: list) -> dict:
     """The render cell's checks of its own output (the module docstring)."""
     from zraytrace_tpu_torch import showcase
-    from zraytrace_tpu_torch.render import C_RAYS, C_RECURSION, C_REFLECTIONS, C_SAMPLES, decode
+    from zraytrace_tpu_torch.render import (C_RAYS, C_RECURSION, C_REFLECTIONS, C_SAMPLES, decode,
+                                            fetch_sums)
 
     c = first.counters
     w, h = e.lay.width, e.lay.height
@@ -217,8 +222,8 @@ def render_checks(e: Engine, cell: RenderCell, spp: int, depth: int, first: Pass
         checks.update(events_per_sample_off=off, events_bar=cell.event_tol,
                       events=off <= cell.event_tol)
         if cell.png:
-            diff = showcase.mean_8bit_diff(decode(first.sums, e.lay, spp).numpy(),
-                                           showcase.png(e.name, w, h, spp))
+            image = decode(fetch_sums(first.sums, e.lay), e.lay, spp)
+            diff = showcase.mean_8bit_diff(image.numpy(), showcase.png(e.name, w, h, spp))
             checks.update(mean_8bit_diff=diff, png_bar=showcase.PNG_BAR,
                           image=diff < showcase.PNG_BAR)
     return checks

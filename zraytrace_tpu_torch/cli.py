@@ -5,7 +5,9 @@ Positional argument order matches the reference binary (main.zig:16):
 (5, goat, needs an asset that is absent upstream). Renders on the CUDA
 device; ``--cpu`` renders with the plain PyTorch wavefront on the host.
 With ``ZRAYTRACE_TRACE_DIR`` set, the render runs under a
-``torch.profiler`` trace written there (``profiling.torch_trace``).
+``torch.profiler`` trace written there (``profiling.torch_trace``), the
+program's spans as ranges around the kernels. The run ends with the span
+report (``profiling.print_spans``).
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ def main(argv=None) -> int:
     from zraytrace_tpu_torch.config import RenderParams
     from zraytrace_tpu_torch.io.png import write_png
     from zraytrace_tpu_torch.io.ppm import write_ppm
-    from zraytrace_tpu_torch.profiling import PhaseTimer, print_render_report, torch_trace
+    from zraytrace_tpu_torch.profiling import print_render_report, print_spans, span, torch_trace
     from zraytrace_tpu_torch.render import render
     from zraytrace_tpu_torch.scenes import build_scene
 
@@ -54,9 +56,7 @@ def main(argv=None) -> int:
         bvh=not args.no_bvh,
         seed=args.seed,
     )
-    timer = PhaseTimer()
-    with timer.span("scene build"):
-        built = build_scene(args.scene_index, device)
+    built = build_scene(args.scene_index, device)
     print(f"Rendering scene {built.name} on {device}", file=sys.stderr)
     print(f" - Surfaces:          {built.scene.n_primitives}", file=sys.stderr)
     print(f" - Pixels:            {params.width}x{params.height}", file=sys.stderr)
@@ -64,16 +64,15 @@ def main(argv=None) -> int:
     print(f" - Recursion depth:   {params.max_depth}", file=sys.stderr)
 
     with torch_trace(os.environ.get("ZRAYTRACE_TRACE_DIR")):
-        with timer.span("render"):
-            image, stats = render(built.scene, built.camera, params, device)
-    with timer.span("image write"):
+        image, stats = render(built.scene, built.camera, params, device)
+    with span("cli.write"):
         write_png(args.filename, image.numpy())
         if args.ppm:
             write_ppm(str(args.filename) + ".ppm", image.numpy())
 
     print_render_report(stats)
-    print("Phase timings:", file=sys.stderr)
-    timer.report()
+    print("Spans:", file=sys.stderr)
+    print_spans()
     return 0
 
 

@@ -24,6 +24,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from zraytrace_tpu_torch.profiling import span
+
 LEAF_SIZE = 4
 
 
@@ -42,6 +44,7 @@ class TriBVH(NamedTuple):
         return self.node_min.shape[0]
 
 
+@span("bvh.build")
 def build_tri_bvh(a, b, c, leaf_size: int = LEAF_SIZE) -> TriBVH:
     """Build over triangle vertex arrays ``(T, 3)`` (tensors or arrays)."""
     from zraytrace_tpu_torch.native.api import build_bvh_native

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from zraytrace_tpu_torch import camera as cam
+from zraytrace_tpu_torch.profiling import span
 from zraytrace_tpu_torch.render_diff import MESH_FAST_MIN_TRIANGLES, render_diff
 from zraytrace_tpu_torch.scene import Scene
 
@@ -55,15 +56,17 @@ def make_loss_fn(static, camera, target, width, height, spp, max_depth, seed=42,
     gradient, and routes the winner pass and the margin selection through
     them. Chunk boxes always come from the current vertices, so the
     result does not depend on the order; only the chunks' tightness does.
+    Each call is a ``fit.loss`` span, the repack a ``diff.pack`` inside it.
     """
 
+    @span("fit.loss")
     def loss_fn(params, eps_scale=None):
         scene = merge_scene(params, static)
         tf = None
         if tri_order is not None:
             from zraytrace_tpu_torch.ops.flash_intersect import pack_tri_planes
 
-            with torch.no_grad():
+            with torch.no_grad(), span("diff.pack"):
                 tf = pack_tri_planes(scene.tri_a.detach(), scene.tri_b.detach(),
                                      scene.tri_c.detach(), order=tri_order)
         eps = edge_eps
@@ -130,7 +133,9 @@ def fit(scene_init: Scene, camera: cam.Camera, target, width: int, height: int, 
     and resume from the file if it exists (``checkpoint.py``). The
     fingerprint covers the JAX package's fields (not the target); steps
     join it only while the coarse-to-fine schedule is on, so a plain fit
-    can be extended by resuming with more steps.
+    can be extended by resuming with more steps. Each step is a
+    ``fit.step`` span with ``fit.loss``, ``fit.backward``, ``fit.adam`` and
+    ``fit.checkpoint`` inside (``profiling``).
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -177,21 +182,25 @@ def fit(scene_init: Scene, camera: cam.Camera, target, width: int, height: int, 
             losses = [torch.tensor(float(v), device=device) for v in saved]
 
     for i in range(start, steps):
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(params, eps_scale_at(i))
-        loss.backward()
-        if fd_fields:
-            # the loss value does not depend on the edge bandwidth, so FD
-            # sees the unscaled loss
-            for f, g in fd_gradients(loss_fn, params, fd_fields).items():
-                if params[f].requires_grad:
-                    params[f].grad = g
-        opt.step()
-        losses.append(loss.detach())
-        if checkpoint_path and ((i + 1) % checkpoint_every == 0 or i + 1 == steps):
-            from zraytrace_tpu_torch.checkpoint import save_fit_checkpoint
+        with span("fit.step"):
+            opt.zero_grad(set_to_none=True)
+            loss = loss_fn(params, eps_scale_at(i))
+            with span("fit.backward"):
+                loss.backward()
+                if fd_fields:
+                    # the loss value does not depend on the edge bandwidth, so FD
+                    # sees the unscaled loss
+                    for f, g in fd_gradients(loss_fn, params, fd_fields).items():
+                        if params[f].requires_grad:
+                            params[f].grad = g
+            with span("fit.adam"):
+                opt.step()
+            losses.append(loss.detach())
+            if checkpoint_path and ((i + 1) % checkpoint_every == 0 or i + 1 == steps):
+                from zraytrace_tpu_torch.checkpoint import save_fit_checkpoint
 
-            save_fit_checkpoint(checkpoint_path, params, opt, i + 1, losses, fp)
+                with span("fit.checkpoint"):
+                    save_fit_checkpoint(checkpoint_path, params, opt, i + 1, losses, fp)
     final = {f: v.detach() for f, v in params.items()}
     return FitResult(merge_scene(final, static), torch.stack(losses))
 

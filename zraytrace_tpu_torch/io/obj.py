@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 
 from zraytrace_tpu_torch.native.api import ObjParseError, parse_obj_native
+from zraytrace_tpu_torch.profiling import span
 
 __all__ = ["ObjModel", "ObjParseError", "read_obj"]
 
@@ -38,6 +39,7 @@ class ObjModel:
         return v[:, 0], v[:, 1], v[:, 2]
 
 
+@span("io.obj")
 def read_obj(path) -> ObjModel:
     vertices, tris, faces, n_normals = parse_obj_native(path)
     return ObjModel(vertices=vertices, faces=faces, triangles=tris, n_normals=n_normals)

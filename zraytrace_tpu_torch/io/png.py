@@ -22,6 +22,8 @@ import zlib
 
 import numpy as np
 
+from zraytrace_tpu_torch.profiling import span
+
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {2: 3, 6: 4}  # colour type -> samples per pixel
 
@@ -90,6 +92,7 @@ def decode_png(data: bytes) -> np.ndarray:
     return _unfilter(zlib.decompress(b"".join(idat)), h, w, _CHANNELS[ctype])
 
 
+@span("io.png")
 def read_png(path) -> np.ndarray:
     """Read a PNG into ``(H, W, 3)`` f32 in [0, 1], row 0 = image bottom."""
     with open(path, "rb") as f:

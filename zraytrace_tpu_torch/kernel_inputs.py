@@ -31,6 +31,7 @@ from zraytrace_tpu_torch import vecmath as vm
 from zraytrace_tpu_torch.geometry.bvh import build_tri_bvh
 from zraytrace_tpu_torch.geometry.sphere import BIG, intersect_spheres
 from zraytrace_tpu_torch.ops import flash_intersect as fi
+from zraytrace_tpu_torch.profiling import span
 from zraytrace_tpu_torch.render import camera_rays, trace_closest
 from zraytrace_tpu_torch.render_diff import render_diff
 from zraytrace_tpu_torch.scenes import teapot_on_ground
@@ -74,7 +75,7 @@ def pose_image(base, camera, order, off, eps: float | None, screen: bool = False
     dev = off.device
     scene = transform_triangles(base, Pose(off, torch.zeros(3, device=dev),
                                            torch.ones((), device=dev)))
-    with torch.no_grad():
+    with torch.no_grad(), span("diff.pack"):
         planes = fi.pack_tri_planes(scene.tri_a.detach(), scene.tri_b.detach(),
                                     scene.tri_c.detach(), order=order)
     return render_diff(scene, camera, width, height, spp, depth, seed=SEED, mesh_fast=True,
@@ -83,10 +84,11 @@ def pose_image(base, camera, order, off, eps: float | None, screen: bool = False
                        edge_occlusion=occlusion, edge_screen=screen)
 
 
+@span("fit.loss")
 def pose_loss(base, camera, order, off, target, **dims):
     """The pose fit's loss: the mean squared difference of ``pose_image``
     at ``off`` (edge factors at ``(POSE_EPS, 2 POSE_EPS)``) from
-    ``target``; ``dims`` as ``pose_image``'s."""
+    ``target``; ``dims`` as ``pose_image``'s. A ``fit.loss`` span."""
     return ((pose_image(base, camera, order, off, POSE_EPS, **dims) - target) ** 2).mean()
 
 

@@ -13,7 +13,9 @@ there is no matrix work), is ``csrc/bounce_kernel.cu``; the walk is
 ``bounce_trace`` has the contract of the plain wavefront
 ``render.wavefront_trace``, which this module re-exports as
 ``wavefront_trace_reference``: on a CPU tensor the wrapper runs that plain
-version; on a CUDA tensor it launches the kernel or raises.
+version; on a CUDA tensor it launches the kernel or raises. Each launch
+adds to the store's counter ``launch.bounce`` (``profiling``), and in
+mesh mode to ``launch.bounce_mesh`` too.
 """
 
 from __future__ import annotations
@@ -26,18 +28,13 @@ from zraytrace_tpu_torch.camera import Camera
 from zraytrace_tpu_torch.ops.flash_intersect import TriPlanes, check_planes
 from zraytrace_tpu_torch.ops.mesh_bvh import WORK_FIELDS as BVH_WORK_FIELDS
 from zraytrace_tpu_torch.ops.mesh_bvh import check_tables
+from zraytrace_tpu_torch.profiling import count
 from zraytrace_tpu_torch.render import MAX_SPHERES, N_COUNTERS
 from zraytrace_tpu_torch.render import wavefront_trace as wavefront_trace_reference
 from zraytrace_tpu_torch.scene import Scene
 
-__all__ = ["bounce_trace", "wavefront_trace_reference", "LAUNCHES", "MESH_LAUNCHES",
-           "WORK_FIELDS", "simt", "check_mesh", "library", "bind", "scene_tables",
-           "sphere_rows"]
-
-# Kernel launches made by ``bounce_trace`` in this process, and those of
-# them in mesh mode.
-LAUNCHES = 0
-MESH_LAUNCHES = 0
+__all__ = ["bounce_trace", "wavefront_trace_reference", "WORK_FIELDS", "simt", "check_mesh",
+           "library", "bind", "scene_tables", "sphere_rows"]
 
 # The kernel's shared-memory material table holds at most this many rows
 # (csrc/bounce_kernel.cu MAX_MATS; render.MAX_SPHERES likewise).
@@ -163,7 +160,6 @@ def bounce_trace(scene: Scene, camera: Camera, pixel_base: torch.Tensor, seed,
     ``work``, an int64 tensor of ``len(WORK_FIELDS)`` on the card, has the
     work done added to it by a counting build of the kernel (slower; for
     pricing a bound, not for rendering). The plain version counts nothing."""
-    global LAUNCHES, MESH_LAUNCHES
     dev = pixel_base.device
     if dev.type == "cpu":
         return wavefront_trace_reference(
@@ -231,6 +227,7 @@ def bounce_trace(scene: Scene, camera: Camera, pixel_base: torch.Tensor, seed,
     if err != 0:
         raise RuntimeError(
             f"bounce kernel launch failed: {lib.zr_error_string(err).decode()}")
-    LAUNCHES += 1
-    MESH_LAUNCHES += int(mesh)
+    count("launch.bounce")
+    if mesh:
+        count("launch.bounce_mesh")
     return slot_sums, counters

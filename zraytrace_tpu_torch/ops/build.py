@@ -25,6 +25,8 @@ import threading
 import time
 from pathlib import Path
 
+from zraytrace_tpu_torch.profiling import count, span
+
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 HOST_SRC = PACKAGE / "native"
@@ -53,10 +55,12 @@ def find_nvcc() -> str:
                        "with the CUDA toolkit")
 
 
+@span("ops.build")
 def _compile(stem: str, compiler: str, flags, sources, inputs) -> dict:
     """Run ``compiler flags -o <lib> inputs`` unless a library built from
-    the same ``sources`` and ``flags`` exists. Returns ``{"path",
-    "seconds", "cached", "log"}``."""
+    the same ``sources`` and ``flags`` exists (counters ``build.compiled``
+    and ``build.cached``). Returns ``{"path", "seconds", "cached",
+    "log"}``."""
     h = hashlib.sha256(" ".join(flags).encode())
     for src in sources:
         h.update(src.name.encode())
@@ -66,6 +70,7 @@ def _compile(stem: str, compiler: str, flags, sources, inputs) -> dict:
     log_path = out.with_suffix(".log")
     if out.exists():
         log = log_path.read_text() if log_path.exists() else ""
+        count("build.cached")
         return dict(path=out, seconds=0.0, cached=True, log=log)
     # one name per thread: two checkouts may hold the same sources and build at once
     tmp = out.with_suffix(f".tmp{os.getpid()}-{threading.get_ident()}.so")
@@ -79,6 +84,7 @@ def _compile(stem: str, compiler: str, flags, sources, inputs) -> dict:
         raise RuntimeError(f"{compiler} failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
     log_path.write_text(log)
     os.replace(tmp, out)
+    count("build.compiled")
     return dict(path=out, seconds=seconds, cached=False, log=log)
 
 

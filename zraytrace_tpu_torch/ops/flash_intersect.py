@@ -29,6 +29,8 @@ The same planes, packed with original ids, feed the silhouette-margin
 selection of the differentiable path: ``flash_margin_select`` launches
 ``csrc/flash_margins.cu`` (replacing ``_kernel_rl_margins``, ``:870``)
 for CUDA tensors and runs ``flash_margin_select_plain`` for CPU tensors.
+Each launch adds to the store's counter ``launch.flash`` or
+``launch.margins`` (``profiling``).
 """
 
 from __future__ import annotations
@@ -41,17 +43,13 @@ import torch
 from zraytrace_tpu_torch import vecmath as vm
 from zraytrace_tpu_torch.geometry.sphere import BIG
 from zraytrace_tpu_torch.geometry.triangle import DET_EPS
+from zraytrace_tpu_torch.profiling import count
 
 __all__ = ["TriPlanes", "pack_tri_planes", "root_box", "ray_chunk_reach",
-           "flash_intersect_plain", "flash_intersect_triangles", "LAUNCHES", "WORK_FIELDS",
+           "flash_intersect_plain", "flash_intersect_triangles", "WORK_FIELDS",
            "FLASH_WORK_FIELDS",
            "library", "LANE", "N_COMP", "dilated_bounds", "flash_margin_select_plain",
-           "flash_margin_select", "MARGIN_LAUNCHES", "MARGIN_WORK_FIELDS", "margins_library"]
-
-# Kernel launches made by ``flash_intersect_triangles`` in this process.
-LAUNCHES = 0
-# Kernel launches made by ``flash_margin_select`` in this process.
-MARGIN_LAUNCHES = 0
+           "flash_margin_select", "MARGIN_WORK_FIELDS", "margins_library"]
 
 LANE = 128  # triangles per chunk
 # packed component planes, each (n_chunks, 128):
@@ -288,7 +286,6 @@ def flash_intersect_triangles(planes: TriPlanes, o, d, t_min, t_init=None, work=
     a counting build of the kernel (slower; for pricing a bound). The plain
     version counts nothing.
     """
-    global LAUNCHES
     dev = o.device
     if dev.type == "cpu":
         return flash_intersect_plain(planes, o, d, t_min, t_init)
@@ -323,7 +320,7 @@ def flash_intersect_triangles(planes: TriPlanes, o, d, t_min, t_init=None, work=
             None if work is None else work.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash kernel launch failed: {lib.zr_error_string(err).decode()}")
-    LAUNCHES += 1
+    count("launch.flash")
     return t, idx, hit, uv
 
 
@@ -453,7 +450,6 @@ def flash_margin_select(planes: TriPlanes, o, d, t_cap, t_min, work=None):
     ``csrc/flash_margins.cu`` for CUDA tensors and runs
     ``flash_margin_select_plain`` for CPU tensors.
     """
-    global MARGIN_LAUNCHES
     if planes.attrs is not None:
         raise ValueError("margin selection needs original ids: pack the planes without "
                          "attrs (diff_trace.pack_for_diff)")
@@ -484,5 +480,5 @@ def flash_margin_select(planes: TriPlanes, o, d, t_cap, t_min, work=None):
             ids[2].data_ptr(), None if work is None else work.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"margin kernel launch failed: {lib.zr_error_string(err).decode()}")
-    MARGIN_LAUNCHES += 1
+    count("launch.margins")
     return ids[0], ids[1], ids[2]

@@ -21,7 +21,6 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import math
-import time
 from typing import TYPE_CHECKING, NamedTuple
 
 import torch
@@ -39,6 +38,7 @@ from zraytrace_tpu_torch.geometry.sphere import (
     sphere_surface,
 )
 from zraytrace_tpu_torch.geometry.triangle import intersect_triangles, triangle_surface
+from zraytrace_tpu_torch.profiling import count, span
 from zraytrace_tpu_torch.scene import Scene, mesh_materials_const
 
 if TYPE_CHECKING:
@@ -58,8 +58,12 @@ MAX_SPHERES = 32
 class RenderStats:
     """Totals as published by the reference (raytrace.zig:188-201).
 
-    ``render_seconds`` ends when the counters reached the host (the device
-    has finished); ``transfer_seconds`` is the image fetch and decode.
+    ``render()`` sums its spans (``profiling``) into the seconds:
+    ``preprocess_seconds`` is ``render.prepare`` and ``render.route``;
+    ``render_seconds`` is ``render.launch`` and ``render.wait``, which ends
+    when the counters reached the host (the device has finished);
+    ``transfer_seconds`` is ``render.fetch`` and ``render.divide``, the
+    image's fetch and decode.
     """
 
     rays: int = 0
@@ -287,10 +291,13 @@ def flash_pack_cached(scene: Scene):
     const = mesh_materials_const(scene)
     h = hashlib.sha256()
     for a in (scene.tri_a, scene.tri_b, scene.tri_c, scene.tri_mat):
-        h.update(a.detach().cpu().contiguous().numpy().tobytes())
+        data = a.detach().cpu().contiguous().numpy().tobytes()
+        h.update(data)
+        count("flash_memo.hashed_bytes", len(data))
     h.update(b"c" if const else b"n")
     key = (h.hexdigest(), str(scene.tri_a.device))
     planes = _FLASH_MEMO.get(key)
+    count("flash_memo.miss" if planes is None else "flash_memo.hit")
     if planes is None:
         a, b, c, m = (x.cpu() for x in (scene.tri_a, scene.tri_b, scene.tri_c, scene.tri_mat))
         bvh = build_tri_bvh(a, b, c)
@@ -387,10 +394,15 @@ def trace_lanes(route: MeshRoute, scene: Scene, camera: cam.Camera, lay: Lanes, 
                        max_depth, sample_start, lay.n_lanes, lay.n_pixels, lay.n_slots)
 
 
-def decode(sums: torch.Tensor, lay: Lanes, spp: int) -> torch.Tensor:
-    """The image of ``trace_lanes``' sums over ``spp`` samples: ``(H, W,
-    3)`` f32 on the CPU, row 0 the bottom."""
-    flat = sums.reshape(lay.n_slots * lay.n_lanes, 3)[:lay.n_pixels].cpu()
+def fetch_sums(sums: torch.Tensor, lay: Lanes) -> torch.Tensor:
+    """``trace_lanes``' sums of ``lay``'s pixels on the CPU, ``(n_pixels,
+    3)`` f32."""
+    return sums.reshape(lay.n_slots * lay.n_lanes, 3)[:lay.n_pixels].cpu()
+
+
+def decode(flat: torch.Tensor, lay: Lanes, spp: int) -> torch.Tensor:
+    """The image of fetched sums (``fetch_sums``) over ``spp`` samples:
+    ``(H, W, 3)`` f32 on the CPU, row 0 the bottom."""
     return (flat / spp).reshape(lay.height, lay.width, 3)
 
 
@@ -413,26 +425,31 @@ def render(scene: Scene, camera: cam.Camera, params: RenderParams, device="cuda"
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("render(device='cuda') but no CUDA device is available")
-    t0 = time.perf_counter()
-    if device.type == "cuda":
-        library()  # the first use builds the kernel: set-up, not render time
     spp = params.samples_per_pixel
-    lay = lanes(params.width, params.height, params.max_wavefront, device)
-    scene = scene.to(device)
-    camera = camera.to(device)
-    route = mesh_routing(scene, device)
-
-    t1 = time.perf_counter()
-    sums, counters = trace_lanes(route, scene, camera, lay, params.seed, spp, params.max_depth)
-    totals = counters.cpu().tolist()  # waits for the device
-    t_dev = time.perf_counter()
-    image = decode(sums, lay, spp)
-    t2 = time.perf_counter()
+    with span("render.render"):
+        with span("render.prepare") as prepare:
+            if device.type == "cuda":
+                library()  # the first use builds the kernel: set-up, not render time
+            lay = lanes(params.width, params.height, params.max_wavefront, device)
+            scene = scene.to(device)
+            camera = camera.to(device)
+        with span("render.route") as routing:
+            route = mesh_routing(scene, device)
+        with span("render.launch") as launch:
+            sums, counters = trace_lanes(route, scene, camera, lay, params.seed, spp,
+                                         params.max_depth)
+        with span("render.wait") as wait:
+            totals = counters.cpu().tolist()  # waits for the device
+        with span("render.fetch") as fetch:
+            flat = fetch_sums(sums, lay)
+        with span("render.divide") as divide:
+            image = decode(flat, lay, spp)
 
     rays, refl, bg, rec, samples, iters = totals
     stats = RenderStats(
         rays=rays, reflections=refl, background_hits=bg,
         recursion_depth_hits=rec, samples=samples, pixels=lay.n_pixels,
-        wavefront_iterations=iters, preprocess_seconds=t1 - t0,
-        render_seconds=t_dev - t1, transfer_seconds=t2 - t_dev)
+        wavefront_iterations=iters, preprocess_seconds=prepare.seconds + routing.seconds,
+        render_seconds=launch.seconds + wait.seconds,
+        transfer_seconds=fetch.seconds + divide.seconds)
     return image, stats

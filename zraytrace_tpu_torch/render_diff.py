@@ -23,6 +23,13 @@ the three margin-selection ids — are computed first under
 recomputes it in the backward pass; the ids are inputs, so the backward
 pass launches no kernel (the JAX package's ``save_only_these_names(
 "edge_sel_idx")``).
+
+Spans (``profiling``): ``diff.pack`` (``render_diff``'s own planes),
+``diff.sample`` (``trace_paths``), and per bounce ``diff.winner`` and
+``diff.margins`` (the no-grad passes) and ``diff.bounce`` (the
+checkpointed part, its self time the shading) with ``diff.intersect``
+and ``diff.edge`` inside; the last three again, as recompute, in the
+backward pass.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from zraytrace_tpu_torch.diff_trace import (
 )
 from zraytrace_tpu_torch.edge_grad import edge_factor, select_margin_ids
 from zraytrace_tpu_torch.geometry.sphere import BIG
+from zraytrace_tpu_torch.profiling import span
 from zraytrace_tpu_torch.render import background_color, camera_rays, trace_closest
 from zraytrace_tpu_torch.scene import Scene
 
@@ -50,6 +58,7 @@ from zraytrace_tpu_torch.scene import Scene
 MESH_FAST_MIN_TRIANGLES = 64
 
 
+@span("diff.sample")
 def trace_paths(scene: Scene, camera: cam.Camera, pixel_ids, sample_ids, seed, width, height,
                 max_depth: int, bilinear_textures: bool = True, remat: bool = True,
                 edge_eps=None, edge_occlusion: bool | str = True, mesh_fast: bool | None = None,
@@ -92,20 +101,23 @@ def trace_paths(scene: Scene, camera: cam.Camera, pixel_ids, sample_ids, seed, w
     select = edge_eps is not None and scene.n_triangles > 0
     sel_planes = tri_flash if tri_flash is not None and tri_flash.attrs is None else None
 
+    @span("diff.intersect")
     def trace(o, d, winner):
         if fast:
             return trace_closest_diff(scene, o, d, winner=winner)
         return trace_closest(scene, o, d)
 
+    @span("diff.bounce")
     def bounce(depth_idx, winner, sel, o, d, throughput, radiance, alive, amp, score):
         h = trace(o, d, winner)
         if edge_eps is not None:
             occ_w = None
             if edge_occlusion == "camera":
                 occ_w = 1.0 if depth_idx == 0 else 0.0
-            f = edge_factor(scene, o, d, h, edge_eps, occlusion=bool(edge_occlusion),
-                            eps_scale=amp, occ_weight=occ_w, screen=edge_screen,
-                            kernel=edge_kernel, sel=sel)
+            with span("diff.edge"):
+                f = edge_factor(scene, o, d, h, edge_eps, occlusion=bool(edge_occlusion),
+                                eps_scale=amp, occ_weight=occ_w, screen=edge_screen,
+                                kernel=edge_kernel, sel=sel)
             throughput = throughput * torch.where(alive, f, 1.0)[:, None]
         rnd = zrng.uniform4(seed, pixel_ids, sample_ids, depth_idx, zrng.STREAM_SCATTER)
         out = mat.scatter(scene, d, h["normal"], h["front_face"], h["uv"], h["mat_id"], rnd,
@@ -136,18 +148,23 @@ def trace_paths(scene: Scene, camera: cam.Camera, pixel_ids, sample_ids, seed, w
         return o_next, d_next, throughput, radiance, scattered, amp, score
 
     for depth_idx in range(max_depth):
-        with torch.no_grad():
-            winner = sel = None
-            if fast:
-                ts, _ = sphere_scan(scene, o, d)
-                winner = tri_winner_ids(scene, o, d, ts, tri_flash=tri_flash)
-            if select:
-                if fast:  # the hit distance alone: no surface or material work
-                    t = winner_t(scene, o, d, ts, winner)
-                    h = dict(hit=t < BIG, t=t)
-                else:
-                    h = trace_closest(scene, o, d)
-                sel = select_margin_ids(scene, o, d, h, screen=edge_screen, tri_flash=sel_planes)
+        winner = sel = None
+        if fast or select:
+            with torch.no_grad():
+                with span("diff.winner"):
+                    if fast:
+                        ts, _ = sphere_scan(scene, o, d)
+                        winner = tri_winner_ids(scene, o, d, ts, tri_flash=tri_flash)
+                    if select:
+                        if fast:  # the hit distance alone: no surface or material work
+                            t = winner_t(scene, o, d, ts, winner)
+                            h = dict(hit=t < BIG, t=t)
+                        else:
+                            h = trace_closest(scene, o, d)
+                if select:
+                    with span("diff.margins"):
+                        sel = select_margin_ids(scene, o, d, h, screen=edge_screen,
+                                                tri_flash=sel_planes)
         args = (depth_idx, winner, sel, o, d, throughput, radiance, alive, amp, score)
         if remat:
             state = checkpoint(bounce, *args, use_reentrant=False, preserve_rng_state=False)
@@ -186,7 +203,8 @@ def render_diff(scene: Scene, camera: cam.Camera, width: int, height: int, spp: 
     verts_grad = any(x.requires_grad for x in (scene.tri_a, scene.tri_b, scene.tri_c))
     if (tri_flash is None and scene.n_triangles >= MESH_FAST_MIN_TRIANGLES
             and (mesh_fast is None or mesh_fast) and dev.type == "cuda" and not verts_grad):
-        tri_flash = pack_for_diff(scene)
+        with span("diff.pack"):
+            tri_flash = pack_for_diff(scene)
 
     total = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     stop_total = torch.zeros_like(total)

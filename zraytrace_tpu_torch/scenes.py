@@ -2,7 +2,9 @@
 ``zraytrace_tpu/scenes.py``, with the same constants. Scene indices 0-5
 match ``render_scene`` (scenes.zig:267-277). Scene 5 (goat) raises
 ``FileNotFoundError``: its asset is absent upstream too; ``goat_class``
-is the JAX package's synthetic stand-in at its scale.
+is the JAX package's synthetic stand-in at its scale. Each builder is a
+``scene.build`` span (``profiling``), with ``io.png``, ``io.obj`` and
+``bvh.build`` inside where it reads or builds them.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from zraytrace_tpu_torch import scene as sc
 from zraytrace_tpu_torch.camera import Camera, make_camera
 from zraytrace_tpu_torch.io.obj import read_obj
 from zraytrace_tpu_torch.io.png import read_png
+from zraytrace_tpu_torch.profiling import span
 from zraytrace_tpu_torch.scene import Scene, SceneBuilder
 
 
@@ -53,6 +56,7 @@ def _camera(look_from, device) -> Camera:
     return make_camera(look_from, (0.0, 0.0, 1.0), (0.0, 1.0, 0.0), 45.0, 1.0, device=device)
 
 
+@span("scene.build")
 def man_and_ball(device="cuda") -> BuiltScene:
     """Scene 0 (scenes.zig:26-52): Man.obj in blue metal on the ground."""
     b = SceneBuilder()
@@ -61,6 +65,7 @@ def man_and_ball(device="cuda") -> BuiltScene:
     return BuiltScene(b.build(device), _camera((0.0, 0.0, -30.0), device), "manAndBall")
 
 
+@span("scene.build")
 def three_balls(device="cuda") -> BuiltScene:
     """Scene 1 (scenes.zig:54-100): ground, nitor-logo Lambertian, silver
     mirror, earth-mapped metal, filled glass and a hollow glass bubble
@@ -92,6 +97,7 @@ def three_balls(device="cuda") -> BuiltScene:
     return BuiltScene(b.build(device), camera, "threeBalls")
 
 
+@span("scene.build")
 def bunny_and_ball(device="cuda") -> BuiltScene:
     """Scene 2 (scenes.zig:102-126): bunny.obj in silver metal."""
     b = SceneBuilder()
@@ -100,6 +106,7 @@ def bunny_and_ball(device="cuda") -> BuiltScene:
     return BuiltScene(b.build(device), _camera((0.0, 0.0, -0.5), device), "bunnyAndBall")
 
 
+@span("scene.build")
 def teapot_and_ball(device="cuda") -> BuiltScene:
     """Scene 3 (scenes.zig:206-231): teapot.obj in blue metal."""
     b = SceneBuilder()
@@ -108,6 +115,7 @@ def teapot_and_ball(device="cuda") -> BuiltScene:
     return BuiltScene(b.build(device), _camera((0.0, 0.0, -10.0), device), "teapotAndBall")
 
 
+@span("scene.build")
 def teapot_and_ball_circle(device="cuda") -> BuiltScene:
     """Scene 4 (scenes.zig:168-204): teapot + inward silver sphere
     (negative radius, scenes.zig:195) + earthmap Lambertian ball."""
@@ -126,6 +134,7 @@ def teapot_and_ball_circle(device="cuda") -> BuiltScene:
                       "teapotAndBallCircle")
 
 
+@span("scene.build")
 def goat(device="cuda") -> BuiltScene:
     """Scene 5 (scenes.zig:234-260): high_poly_goat.obj — the asset is
     absent from the reference repo too, so this raises
@@ -136,6 +145,7 @@ def goat(device="cuda") -> BuiltScene:
     return BuiltScene(b.build(device), _camera((0.0, 0.0, -1.7), device), "goat")
 
 
+@span("scene.build")
 def teapot_on_ground(device="cuda") -> BuiltScene:
     """The teapot pose fit's scene (``tools/diff_bench.py:149-158``,
     ``examples/mesh_fit.py``): the 6,320-triangle teapot in red Lambertian
@@ -149,6 +159,7 @@ def teapot_on_ground(device="cuda") -> BuiltScene:
     return BuiltScene(b.build(device), camera, "teapotOnGround")
 
 
+@span("scene.build")
 def goat_class(device="cuda") -> BuiltScene:
     """The goat-class stand-in for scene 5 (``tools/goat_probe.py:31``
     ``build_goat_class_scene``): a 5x5 grid of teapots 8 apart in blue

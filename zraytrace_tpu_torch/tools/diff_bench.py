@@ -100,10 +100,9 @@ def sphere_albedo_step(device, size: int, spp: int, depth: int, seed: int = SEED
 
 
 def _launches() -> tuple:
-    from zraytrace_tpu_torch.ops import bounce_kernel as bk
-    from zraytrace_tpu_torch.ops import flash_intersect as fi
+    from zraytrace_tpu_torch.profiling import counter
 
-    return bk.LAUNCHES, fi.LAUNCHES, fi.MARGIN_LAUNCHES
+    return tuple(counter(k) for k in ("launch.bounce", "launch.flash", "launch.margins"))
 
 
 def time_steps(step, live: dict, device, steps: int) -> dict:

@@ -43,6 +43,8 @@ __all__ = ["AXES", "rank_counts", "weak_scaling", "main"]
 
 AXES = ("data", "sample")
 DEPTH = 8
+# the store's launch counters a rank reports, in this order (``profiling``)
+LAUNCH_COUNTERS = ("launch.bounce", "launch.bounce_mesh", "launch.flash", "launch.margins")
 CAVEAT = ("the ranks are processes of one host sharing one device ({device}) and its "
           "{cores} cores (one rank: {one}; several: gloo), so the efficiency measures that "
           "sharing, not scaling across cards")
@@ -69,9 +71,8 @@ def _rank(rank: int, world: int, scene_index: int, width: int, base: int, spp: i
     """One rank: both axes' renders at ``world`` ranks, each rendered
     twice and the second timed (synchronised, host clock), with the
     kernel launches of both (bounce, mesh-mode bounce, flash, margins)."""
-    from zraytrace_tpu_torch.ops import bounce_kernel as bk
-    from zraytrace_tpu_torch.ops import flash_intersect as fi
     from zraytrace_tpu_torch.parallel.mesh import make_mesh, render_sharded
+    from zraytrace_tpu_torch.profiling import counter
     from zraytrace_tpu_torch.scenes import build_scene
     from zraytrace_tpu_torch.tools.common import wall
 
@@ -84,11 +85,11 @@ def _rank(rank: int, world: int, scene_index: int, width: int, base: int, spp: i
         mesh = make_mesh(world, 1, device=dev) if axis == "data" else make_mesh(1, world,
                                                                                device=dev)
         params = _params(axis, world, width, base, spp, seed)
-        before = (bk.LAUNCHES, bk.MESH_LAUNCHES, fi.LAUNCHES, fi.MARGIN_LAUNCHES)
+        before = [counter(k) for k in LAUNCH_COUNTERS]
         render_sharded(built.scene, built.camera, params, mesh)
         (_, st), seconds = wall(lambda: render_sharded(built.scene, built.camera, params, mesh),
                                 dev)
-        after = (bk.LAUNCHES, bk.MESH_LAUNCHES, fi.LAUNCHES, fi.MARGIN_LAUNCHES)
+        after = [counter(k) for k in LAUNCH_COUNTERS]
         out[axis] = dict(wall=seconds, counters=[
             st.rays, st.reflections, st.background_hits, st.recursion_depth_hits, st.samples,
             st.wavefront_iterations], launches=[a - b for a, b in zip(after, before)])
