@@ -127,7 +127,7 @@ def test_lanes_script_records_every_launch_of_a_pose_step(monkeypatch):
     """The pose step's recorded kernel calls (``kernel_inputs.pose_step_calls``,
     which ``probes/winner_lanes.py`` times and ``chip_smoke.py`` phase 10
     records the same way), at a cut size on the CPU: one flash and one
-    margin call per sample and bounce, each with its planes, rays and seed
+    margin call per bounce and sample group, each with its planes, rays and seed
     or cap, as the card would receive them."""
     from zraytrace_tpu_torch import kernel_inputs as ki
 

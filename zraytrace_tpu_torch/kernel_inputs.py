@@ -11,7 +11,8 @@ another's on the same inputs:
   ``chip_smoke.py`` phase 10 checks and ``tools/diff_bench.py`` times;
 - ``recorded_calls``: every call of the two kernels' wrappers, with its
   inputs, and optionally CUDA events around it; ``pose_step_calls``: those
-  of one pose step's forward (32 of each kernel, 4,096 lanes);
+  of one pose step's forward (4 of each kernel, one a bounce, on the
+  32,768 lanes of its 8 samples);
 - ``scene3_rays``: scene 3's camera rays and one bounce of them, seeded
   with the sphere t (``chip_smoke.py`` phase 5);
 - ``margin_rays``: the pose-fit scene's camera rays and rays leaving the
@@ -160,7 +161,7 @@ def launch(kernel: str, c: KernelCall, work=None):
 def pose_step_calls(dev) -> dict:
     """The wrapper calls of one teapot pose step's forward from
     ``POSE_START``: ``{"flash_intersect": [KernelCall], "flash_margins":
-    [...]}``, one of each per sample and bounce."""
+    [...]}``, one of each per bounce and sample group."""
     b = teapot_on_ground(dev)
     order = build_tri_bvh(b.scene.tri_a, b.scene.tri_b, b.scene.tri_c).prim_order.to(dev)
     off = torch.tensor(POSE_START, device=dev, requires_grad=True)

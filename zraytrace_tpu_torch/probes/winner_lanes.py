@@ -7,10 +7,10 @@ flash winner (``csrc/flash_intersect.cu``) and the margin selection
 (repeatable), the two sources of the checkout at ``DIR`` as they are, and
 times each build, in turns, on the inputs of ``kernel_inputs``:
 
-- ``step``: the 32 launches of each kernel in one teapot pose step
+- ``step``: the 4 launches of each kernel in one teapot pose step
   (``tools/diff_bench.py`` ``teapot_pose_fit``: 64x64, 8 spp, depth 4;
-  4,096 lanes each), recorded from ``render_diff`` and timed as one CUDA
-  graph of the 32, replayed;
+  the 8 samples as 32,768 lanes of each), recorded from ``render_diff``
+  and timed as one CUDA graph of the 4, replayed;
 - ``flash_scene3``: the flash kernel on scene 3's 490,000 camera rays and
   one bounce of them, seeded with the sphere t, packed ids
   (``chip_smoke.py`` phase 5);
@@ -181,7 +181,7 @@ def measure(dev, parents=()):
                     raise RuntimeError(f"{set_name} {kernel} {b.name}: differs from plain")
             calls[(b.name, in_graph)] = [launch for launch, _ in made]
         times = {k: [] for k in calls}
-        reps = 1 if len(inputs) > 1 else 5  # a graph of 32 launches, or of 5 of one
+        reps = 1 if len(inputs) > 1 else 5  # a graph of the step's launches, or of 5 of one
         for keys in (list(calls), list(calls)[::-1]):
             for k in keys:
                 times[k].append(time_graph_calls(calls[k] * reps, dev))

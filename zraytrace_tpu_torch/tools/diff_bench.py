@@ -14,7 +14,8 @@ Counterpart of ``tools/diff_bench.py``:
   image at offset 0, edge factors at ``(0.015, 0.03)`` without the
   occlusion term, flash planes repacked each step in the BVH order, Adam
   at lr 2e-2, default 64x64, 8 spp, depth 4. On the card each step's
-  forward launches the flash and margin kernels spp x depth times each.
+  forward launches the flash and margin kernels depth x sample groups
+  times each (``render_diff.sample_groups``: one group at 64x64x8).
 
 The steps are the port's own: the sphere step is ``inverse.make_loss_fn``
 (``fit()``'s loss) under Adam as ``fit()`` builds it, the pose step
@@ -218,6 +219,7 @@ def bench_teapot_pose(size: int = TEAPOT["size"], spp: int = TEAPOT["spp"],
         pose_image,
     )
     from zraytrace_tpu_torch.kernel_inputs import SEED as POSE_SEED
+    from zraytrace_tpu_torch.render_diff import sample_groups
     from zraytrace_tpu_torch.scenes import teapot_on_ground
     from zraytrace_tpu_torch.transforms import Pose, transform_triangles
 
@@ -246,7 +248,8 @@ def bench_teapot_pose(size: int = TEAPOT["size"], spp: int = TEAPOT["spp"],
                           "winner pass"),
         rays_forward=rays, steps=steps, **_step_stats(t, rays, size * size * spp),
         loss_first=t["losses"][0], launches_per_step=t["launches"])
-    checks = _checks(t, identities, device, (0, spp * depth, spp * depth))
+    per = depth * len(sample_groups(size * size, spp))
+    checks = _checks(t, identities, device, (0, per, per))
     entry.update(checks=checks, correct=_all_true(checks))
     return entry
 

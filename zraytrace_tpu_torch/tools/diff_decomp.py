@@ -9,10 +9,13 @@ spp, depth 10, gradients into every leaf of the scene, a black target):
     value_only       the forward alone, no graph                [forward]
     no_edge          no edge factors                         [edge share]
     no_branch        no REINFORCE term of the Fresnel branch   [branch]
-    no_remat         each bounce kept, not recomputed          [remat]
+    no_remat         each bounce kept, not recomputed, one
+                     trace_paths call per sample                [remat]
     no_atlas         every leaf but the atlas                  [atlas]
     geom_only        sphere centers and radii only
-    flat_samples     all samples as extra lanes in one trace_paths call
+    flat_samples     all samples as extra lanes in one trace_paths call,
+                     without the per-sample baseline (``render_diff``
+                     traces its samples as lanes too, with it)
     nearest_tex      nearest texels, one fetch per hit in place of four
     flat_restricted  the fit's fields (centers, radii, tex_color), flat
 
