@@ -18,17 +18,17 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import sys
 
 import torch
 
 from benchmark import run
 
 
-def readings(cell, seed: int, seconds: float, device, faults=(), control=True) -> dict:
+def readings(cell, seed: int, seconds: float, devices, faults=(), control=True) -> dict:
     """The program's numbers, the control's, and those of each of the
-    fit driver's ``faults`` planted in the reference standing in."""
-    cell.seed, cell.seconds, cell.trace, cell.device = seed, seconds, False, device
+    fit driver's ``faults`` planted in the reference standing in, on the
+    cell's ``devices`` (``run.hand``)."""
+    run.hand(cell, seed, seconds, False, devices)
     res = run.driver(cell.traffic["kind"]).run(cell)
     finite = lambda d: {k: v if math.isfinite(v) else None for k, v in d.items()}
     out = dict(seed=seed, attempted=res["attempted"], program=finite(res["check"]()))
@@ -50,14 +50,13 @@ def main(argv=None) -> int:
     ap.add_argument("--control-seeds", type=int, default=None,
                     help="read the control and the faults on this many of the seeds, the first")
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("benchmark.control: no CUDA device", file=sys.stderr)
+    devices = run.cuda_cards(run.load_cell(run.ROOT, args.workload).entry["chips"])
+    if devices is None:
         return 3
     n_control = len(args.seeds) if args.control_seeds is None else args.control_seeds
     for i, seed in enumerate(args.seeds):
         cell = run.load_cell(run.ROOT, args.workload)
-        print(json.dumps(readings(cell, seed, args.seconds, torch.device("cuda", 0),
-                                  args.faults, i < n_control)),
+        print(json.dumps(readings(cell, seed, args.seconds, devices, args.faults, i < n_control)),
               flush=True)
     return 0
 

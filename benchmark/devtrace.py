@@ -3,10 +3,10 @@ host was doing while the device idled.
 
 ``profiled(fn, n, device)`` runs ``fn`` ``n`` times under
 ``torch.profiler`` and reduces the trace: the device's busy seconds (the
-union of its kernels', copies' and sets' intervals), the traced window's
-seconds on the host clock, the device operations by name, and the idle
-gaps between them, each named by the innermost host operation running
-at its middle.
+union of its kernels', copies' and sets' intervals), in all and by the
+card's index, the traced window's seconds on the host clock, the device
+operations by name, and the idle gaps between them, each named by the
+innermost host operation running at its middle.
 """
 
 from __future__ import annotations
@@ -26,14 +26,15 @@ def _sync(device) -> None:
 
 
 def _events(prof):
-    """``(device, host)`` lists of ``(name, start_ns, end_ns)``."""
+    """``(device, host)`` lists of ``(name, start_ns, end_ns)``, the
+    device's with the card's index last."""
     device, host = [], []
     for e in prof.profiler.kineto_results.events():
         if e.is_user_annotation():
             continue
         row = (e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
         if e.device_type() == torch.autograd.DeviceType.CUDA:
-            device.append(row)
+            device.append(row + (e.device_index(),))
         elif e.device_type() == torch.autograd.DeviceType.CPU:
             host.append(row)
     return device, host
@@ -49,6 +50,10 @@ def _merge(intervals):
     return out
 
 
+def _seconds(merged) -> float:
+    return sum(e - s for s, e in merged) * 1e-9
+
+
 def _label(host, starts, t_ns: int) -> str:
     """The innermost host operation running at ``t_ns``."""
     i = bisect.bisect_right(starts, t_ns) - 1
@@ -61,11 +66,13 @@ def _label(host, starts, t_ns: int) -> str:
 def reduce_trace(device_ev, host_ev, window_s: float) -> dict:
     """The summary of one traced window (``profiled``'s result)."""
     by_name: dict = {}
-    for name, s, e in device_ev:
+    for name, s, e, _ in device_ev:
         key = name[:NAME_CHARS]
         sec, cnt = by_name.get(key, (0.0, 0))
         by_name[key] = (sec + (e - s) * 1e-9, cnt + 1)
-    busy = _merge([(s, e) for _, s, e in device_ev])
+    busy = _merge([(s, e) for _, s, e, _ in device_ev])
+    by_card = {i: _seconds(_merge([(s, e) for _, s, e, j in device_ev if j == i]))
+               for i in {row[3] for row in device_ev}}
     gaps = {}
     if busy:
         host = sorted(host_ev, key=lambda r: r[1])
@@ -84,7 +91,7 @@ def reduce_trace(device_ev, host_ev, window_s: float) -> dict:
             gaps["shorter gaps"] = gaps.get("shorter gaps", 0.0) + rest
     top_ops = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
     return dict(
-        busy_s=sum(e - s for s, e in busy) * 1e-9, window_s=window_s,
+        busy_s=_seconds(busy), busy_by_card=by_card, window_s=window_s,
         device_ops=len(device_ev), kernels={k: v[0] for k, v in by_name.items()},
         kernel_counts={k: v[1] for k, v in by_name.items()},
         breakdown=dict(device_ops=[[k, v[0]] for k, v in top_ops],

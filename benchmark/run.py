@@ -14,8 +14,16 @@ beside its limit, and into the result's last key, ``checks``. The result
 is one JSON line, the last of standard output: the end-to-end metrics
 with ``--trace 0``, the per-layer ones with ``--trace 1``.
 
-Without enough CUDA devices for the cell it exits 3 and prints no
-result; with JAX or the JAX package loaded at the end it exits 4.
+The cell gets the cards its ``chips`` asks for, ``cuda:0`` up, and the
+result's ``device`` block counts the distinct cards the run really used
+(``cards.py``), from each card's record: taken here for a driver that
+works in this process, or returned by a driver whose ranks work in
+processes of their own (``drivers/__init__.py``).
+
+Exits, each with no result: 3 without enough CUDA devices for the cell;
+4 with JAX or the JAX package loaded at the end; 5 where the run used
+fewer distinct cards than the cell asks for, a card twice, or cards of
+different kinds (standard error names the handed and the used cards).
 """
 
 from __future__ import annotations
@@ -29,12 +37,13 @@ import gc  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
-import subprocess  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 from types import SimpleNamespace  # noqa: E402
 
 import torch  # noqa: E402
+
+from benchmark import cards  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "zraytrace_tpu")
@@ -78,28 +87,40 @@ def forbidden_modules() -> list:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
-def card(device) -> dict:
-    """The card's name and power limit (``nvidia-smi``), or the host's."""
-    if torch.device(device).type != "cuda":
-        return dict(platform="cpu", kind="cpu", count=0)
-    info = dict(platform="gpu", kind=torch.cuda.get_device_name(0), count=1)
-    try:
-        out = subprocess.run(["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader",
-                              "-i", "0"], capture_output=True, text=True, timeout=20)
-        info["power_limit"] = out.stdout.strip()
-    except (OSError, subprocess.SubprocessError):
-        info["power_limit"] = None
-    return info
+def cuda_cards(chips: int):
+    """The ``chips`` CUDA devices a cell is handed, or None (and why, on
+    standard error) where fewer are visible."""
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < chips:
+        print(f"benchmark: the cell needs {chips} CUDA device(s); {have} available",
+              file=sys.stderr)
+        return None
+    return [torch.device("cuda", i) for i in range(chips)]
 
 
-def run_cell(cell: SimpleNamespace, seed: int, seconds: float, trace: bool, device) -> dict:
-    """Drive the cell and check it: the result line's fields, and the
-    numbers compared, each with its limit."""
-    cell.seed, cell.seconds, cell.trace, cell.device = seed, seconds, trace, device
+def hand(cell: SimpleNamespace, seed: int, seconds: float, trace: bool, devices: list) -> None:
+    """Set what a driver reads: the run's arguments and its cards
+    (``cell.devices``; ``cell.device`` the first)."""
+    cell.seed, cell.seconds, cell.trace = seed, seconds, trace
+    cell.devices, cell.device = list(devices), devices[0]
+
+
+def run_cell(cell: SimpleNamespace, seed: int, seconds: float, trace: bool, devices) -> dict:
+    """Drive the cell on ``devices`` and check it: the result line's
+    fields, and the numbers compared, each with its limit. Raises
+    ``cards.WrongCards``, before the check, where the run did not use the
+    cards its cell asks for."""
+    hand(cell, seed, seconds, trace, devices)
     res = driver(cell.traffic["kind"]).run(cell)
     setup_s = res["setup_end"] - T_START
-    on_card = torch.device(device).type == "cuda"
-    peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+    if torch.device(cell.device).type == "cuda":
+        handed = [cards.record(d, res.get("profile")) for d in cell.devices]
+        dev = cards.block(res.get("devices") or handed, handed, cell.entry["chips"], trace)
+    else:  # the host, in tests: no card to count
+        dev = dict(platform="cpu", kind="cpu", count=0, memory_peak_bytes=0,
+                   host_cpu=cards.host_cpu())
+        if trace:
+            dev.update(busy_s=res["profile"]["busy_s"], window_s=res["profile"]["window_s"])
     t0 = time.perf_counter()
     numbers = res.pop("check")()
     gc.collect()
@@ -107,8 +128,6 @@ def run_cell(cell: SimpleNamespace, seed: int, seconds: float, trace: bool, devi
     checks = {k: dict(value=v if math.isfinite(v) else None, limit=cell.limits[k])
               for k, v in numbers.items()}
     print(f"# check took {time.perf_counter() - t0:.3f} s", file=sys.stderr)
-    dev = card(device)
-    dev["memory_peak_bytes"] = peak
     out = dict(correct=all(c["value"] is not None and c["value"] <= c["limit"]
                            for c in checks.values()),
                attempted=res["attempted"], failed=res["failed"])
@@ -120,9 +139,7 @@ def run_cell(cell: SimpleNamespace, seed: int, seconds: float, trace: bool, devi
             v = reader(cell.root, m["name"])(res)
             if v is not None:
                 metrics[m["name"]] = dict(value=v, unit=units[m["name"]])
-        prof = res["profile"]
-        dev.update(busy_s=prof["busy_s"], window_s=prof["window_s"])
-        out.update(metrics=metrics, device=dev, breakdown=prof["breakdown"])
+        out.update(metrics=metrics, device=dev, breakdown=res["profile"]["breakdown"])
     else:
         vals = dict(res["metrics"], setup_s=setup_s)
         out.update(metrics={m["name"]: dict(value=vals[m["name"]], unit=units[m["name"]])
@@ -141,13 +158,14 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
     cell = load_cell(ROOT, args.workload)
-    chips = cell.entry["chips"]
-    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
-        print(f"benchmark: the cell needs {chips} CUDA device(s); "
-              f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} available",
-              file=sys.stderr)
+    devices = cuda_cards(cell.entry["chips"])
+    if devices is None:
         return 3
-    out = run_cell(cell, args.seed, args.seconds, bool(args.trace), torch.device("cuda", 0))
+    try:
+        out = run_cell(cell, args.seed, args.seconds, bool(args.trace), devices)
+    except cards.WrongCards as e:
+        print(f"benchmark: {e}", file=sys.stderr)
+        return 5
     found = forbidden_modules()
     if found:
         print(f"benchmark: loaded {found}: the port must run without JAX", file=sys.stderr)

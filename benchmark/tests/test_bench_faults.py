@@ -21,7 +21,7 @@ def _correct(cell, numbers: dict) -> bool:
 def test_control_is_not_correct(name, root):
     cell = run.load_cell(root, name)
     faults = ("altered", "half") if name.endswith("fit") else ()
-    r = control.readings(cell, 6_000_000_001, 0.1, "cpu", faults)
+    r = control.readings(cell, 6_000_000_001, 0.1, ["cpu"], faults)
     assert _correct(cell, {k: v for k, v in r["program"].items() if v is not None})
     for stand_in in ("control",) + faults:
         assert not _correct(cell, {k: float("nan") if v is None else v
