@@ -8,9 +8,13 @@ devices.
 The ranks are fresh processes (``multihost.run_ranks``: spawn, a
 rendezvous file, every rank joined with a timeout); one start of four
 ranks runs every case, and they import the port and numpy only. JAX is
-imported inside the tests.
+imported inside the tests. The three-balls scene at a cut size is also
+held to the benchmark's plain reference (``benchmark/reference/``), with
+``render_sharded``'s spans and counters.
 """
 
+import json
+import os
 import subprocess
 import sys
 
@@ -30,6 +34,11 @@ SPP, DEPTH = 4, 4
 # devices; here 2x2 over 4 ranks)
 STEP_MESH, STEP_SPP, STEP_DEPTH = (2, 2), 4, 3
 TRI_MESHES = [(4, 1), (2, 2)]
+# the three-balls scene (scenes.build_scene(1)) at a cut size of its
+# benchmark configuration, on the meshes of four ranks
+BALLS = dict(width=12, height=10, spp=2, depth=5, seed=3_456_789_012)
+BALLS_MESHES = [(4, 1), (2, 2)]
+MESH_CHILDREN = {"mesh.prepare", "mesh.trace", "mesh.allreduce", "mesh.fetch", "mesh.divide"}
 # the JAX gradient bar (tests/test_torch_diff.py, tests/test_diff_mesh.py)
 GRAD_ATOL, GRAD_RTOL = 5e-4, 2e-3
 
@@ -62,6 +71,8 @@ def _cases_rank(rank, world, fields, cam, tris):
         out[("render", shape)] = (img.numpy(), _counters(st), st.wavefront_iterations)
     if world != 4:
         return out
+    out["env"] = (os.environ["LOCAL_RANK"], os.environ["LOCAL_WORLD_SIZE"])
+    out.update(_three_balls_rank())
     mesh = make_mesh(4, 1, device="cpu")
     img, st = render_sharded(scene, camera, RenderParams(
         width=9, height=7, samples_per_pixel=SPP, max_depth=DEPTH), mesh)
@@ -81,6 +92,28 @@ def _cases_rank(rank, world, fields, cam, tris):
     out["step"] = (float(loss), {f: np.zeros(p.shape, np.float32) if p.grad is None
                                  else p.grad.numpy() for f, p in params.items()},
                    {f: p.detach().numpy() for f, p in params.items()})
+    return out
+
+
+def _three_balls_rank():
+    """``render_sharded`` of the three-balls scene at ``BALLS`` on each of
+    ``BALLS_MESHES``: the image, the counters, and the call's
+    ``mesh.render`` record (its span names and counters)."""
+    from zraytrace_tpu_torch import profiling
+    from zraytrace_tpu_torch.parallel.mesh import make_mesh, render_sharded
+    from zraytrace_tpu_torch.scenes import build_scene
+
+    built = build_scene(1, device="cpu")
+    params = RenderParams(width=BALLS["width"], height=BALLS["height"],
+                          samples_per_pixel=BALLS["spp"], max_depth=BALLS["depth"],
+                          seed=BALLS["seed"])
+    out = {}
+    for shape in BALLS_MESHES:
+        img, st = render_sharded(built.scene, built.camera, params,
+                                 make_mesh(*shape, device="cpu"))
+        rec = profiling.records("mesh.render")[-1]
+        out[("balls", shape)] = (img.numpy(), _counters(st),
+                                 {name for name, _ in rec.spans}, dict(rec.counters))
     return out
 
 
@@ -167,6 +200,81 @@ def test_render_sharded(ranks, mini, case):
         width=w, height=h, samples_per_pixel=SPP, max_depth=DEPTH), _jax_mesh(shape))
     assert counters == _counters(jst)
     np.testing.assert_allclose(img, np.asarray(jimg), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("shape", BALLS_MESHES, ids=str)
+def test_render_sharded_three_balls_against_the_reference(ranks, shape):
+    """The three-balls scene (textured spheres, metal, glass) at a cut size
+    against the benchmark's plain reference over every pixel: counters
+    exact; with one sample shard the image equal bit for bit (the shards
+    trace ``render()``'s lanes, and ``render()`` on the CPU equals the
+    reference bit for bit); with two, within 1e-5, since the two shards'
+    partial sums add in another order than one running sum over the
+    samples (float32 rounding of values below 2)."""
+    from benchmark.reference import render as ref_render
+    from benchmark.reference import scene as ref_scene
+
+    repo = __import__("pathlib").Path(__file__).resolve().parents[1]
+    cfg = json.loads((repo / "benchmark" / "configs" / "threeBalls.json").read_text())
+    desc = cfg["scenes"][cfg["render"]["scene"]]
+    img, counters = ranks[0][("balls", shape)][:2]
+    for r in ranks[1:]:
+        np.testing.assert_array_equal(r[("balls", shape)][0], img)
+        assert r[("balls", shape)][1] == counters
+    w, h = BALLS["width"], BALLS["height"]
+    vals, counts = ref_render.render_pixels(
+        ref_scene.build(desc, repo, "cpu"), BALLS["seed"], torch.arange(w * h), w, h,
+        BALLS["spp"], BALLS["depth"])
+    assert counters == [counts[k] for k in ("rays", "reflections", "background_hits",
+                                            "recursion_depth_hits", "samples")]
+    want = vals.reshape(h, w, 3).numpy()
+    if shape[1] == 1:
+        np.testing.assert_array_equal(img, want)
+    else:
+        np.testing.assert_allclose(img, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("shape", BALLS_MESHES, ids=str)
+def test_render_sharded_spans_and_counters(ranks, shape):
+    """Each rank's ``mesh.render`` record holds its five child spans; three
+    all-reduces a call, of the slot-sum buffer and the counters' bytes;
+    the ranks' own rays sum to the image's."""
+    n_data = shape[0]
+    per = -(-BALLS["width"] * BALLS["height"] // n_data)
+    buffer_bytes = per * n_data * 3 * 4 + 6 * 8  # f32 sums, five events and the iterations
+    own = 0
+    for r in ranks:
+        _, counters, names, counts = r[("balls", shape)]
+        assert MESH_CHILDREN <= names
+        assert counts["collective.all_reduce"] == 3
+        assert counts["collective.bytes"] == buffer_bytes
+        own += counts["mesh.rank_rays"]
+    assert own == ranks[0][("balls", shape)][1][0]
+
+
+def test_run_ranks_sets_the_local_rank(ranks):
+    """As ``torchrun`` does on one host."""
+    assert [r["env"] for r in ranks] == [(str(i), "4") for i in range(4)]
+
+
+@pytest.mark.parametrize("device,rank,want", [
+    ("cuda", 0, "cuda:0"), ("cuda", 3, "cuda:3"), ("cuda:0", 2, "cuda:0"), ("cpu", 1, "cpu"),
+    (None, 1, None)])
+def test_rank_device(device, rank, want):
+    """One card a rank where the device names the card without an index;
+    an indexed card or the CPU is every rank's."""
+    from zraytrace_tpu_torch.parallel.multihost import rank_device
+
+    got = rank_device(rank, device)
+    assert (None if got is None else str(got)) == want
+
+
+def test_run_ranks_refuses_more_ranks_than_cards(monkeypatch):
+    from zraytrace_tpu_torch.parallel import multihost
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(RuntimeError, match="need cuda:0 to cuda:3; this host has 2"):
+        multihost.run_ranks(print, 4, device="cuda")
 
 
 @pytest.mark.parametrize("shape", TRI_MESHES, ids=str)

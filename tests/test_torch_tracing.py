@@ -230,6 +230,26 @@ def test_scene_build_holds_its_reads():
     assert rec.stat("scene.build").self_seconds < rec.seconds
 
 
+def _build_in_rank(rank, world):
+    from zraytrace_tpu_torch import profiling
+
+    three_balls("cpu")
+    return profiling.records("scene.build")
+
+
+def test_a_ranks_record_is_kept_in_the_launching_process():
+    """A rank's ``scene.build`` record, returned through ``run_ranks``
+    and kept, reads here as one of this process's, spans and all."""
+    from zraytrace_tpu_torch.parallel.multihost import run_ranks
+    from zraytrace_tpu_torch.profiling import keep
+
+    (rec,) = run_ranks(_build_in_rank, 1, timeout=120)[0]
+    assert not records("scene.build")
+    keep(rec)
+    (kept,) = records("scene.build")
+    assert kept.seconds == rec.seconds > 0 and kept.stat("io.png").calls == 2
+
+
 def _read(name, setup_end, device="cuda"):
     """The benchmark's reader ``name`` on a traced run on ``device`` whose
     set-up ended at ``setup_end``: the readers take only runs on the

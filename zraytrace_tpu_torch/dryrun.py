@@ -76,6 +76,8 @@ def dryrun_multichip(n: int, device="cuda") -> list:
             raise ValueError(f"the group has {dist.get_world_size()} ranks, not {n}")
         return [_dryrun(dist.get_rank(), n, dev)]
     if n > 1:
+        if dev.type == "cuda" and dev.index is None:  # gloo ranks sharing the current card
+            dev = torch.device("cuda", torch.cuda.current_device())
         return multihost.run_ranks(_dryrun, n, dev, backend="gloo", device=dev)
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")

@@ -22,6 +22,19 @@ nonzero term meets zeros (exact), and over ``sample`` the partial sums
 add. All-reduce is the one collective gloo runs on CUDA tensors besides
 broadcast.
 
+Rank *r* of a host computes on its own card: ``make_mesh()`` takes
+``cuda:<LOCAL_RANK>`` (``torchrun`` sets it, as does
+``multihost.run_ranks``). NCCL itself refuses two ranks on one card, at
+the first collective.
+
+Spans (``profiling``): ``mesh.render``, one image on one rank, with
+``mesh.prepare`` (scene and camera to the card, routing, lane ids),
+``mesh.trace`` (this rank's launch, to its synchronise), ``mesh.allreduce``
+(the three all-reduces, to the counters on the host), ``mesh.fetch`` and
+``mesh.divide``. Counters: ``collective.all_reduce`` (calls),
+``collective.bytes`` (the bytes this rank hands to them) and
+``mesh.rank_rays`` (this rank's own rays, before the sum).
+
 The TPU engine's lane map balancing, tile-coherent fallback, sample
 interleave and lane granularity are its machinery and have no
 counterpart: the kernel takes any lane count.
@@ -30,13 +43,14 @@ counterpart: the kernel takes any lane count.
 from __future__ import annotations
 
 import math
-import time
+import os
 
 import torch
 import torch.distributed as dist
 
 from zraytrace_tpu_torch import camera as cam
 from zraytrace_tpu_torch.config import RenderParams
+from zraytrace_tpu_torch.profiling import count, span
 from zraytrace_tpu_torch.render import C_ITERS, RenderStats
 from zraytrace_tpu_torch.scene import Scene
 
@@ -69,8 +83,10 @@ class Mesh:
 def make_mesh(n_data: int | None = None, n_sample: int = 1, device="cuda") -> Mesh:
     """The mesh over every rank of the process group (``multihost.initialize``
     first), all ranks on ``data`` by default. ``device``: this rank's
-    compute device (the card by default; a rank may share it with
-    others). Collective: every rank calls it."""
+    compute device; ``"cuda"`` (the default) is ``cuda:<LOCAL_RANK>``
+    where the environment sets it (``torchrun``, ``multihost.run_ranks``),
+    else the current card; an indexed card may be shared by gloo ranks.
+    Collective: every rank calls it."""
     from torch.distributed.device_mesh import DeviceMesh
 
     device = torch.device(device)
@@ -86,7 +102,9 @@ def make_mesh(n_data: int | None = None, n_sample: int = 1, device="cuda") -> Me
         raise ValueError(f"{world} ranks cannot form a {n_data}x{n_sample} mesh")
     if device.type == "cuda":
         if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
+            local = os.environ.get("LOCAL_RANK")
+            device = torch.device("cuda", torch.cuda.current_device() if local is None
+                                  else int(local))
         # before the DeviceMesh, which would otherwise pick a card from the rank
         torch.cuda.set_device(device)
     ranks = torch.arange(world, dtype=torch.int32).reshape(n_data, n_sample)
@@ -125,7 +143,8 @@ def sharded_sums(scene: Scene, camera: cam.Camera, params: RenderParams, mesh: M
     (H*W, 3) f32 CPU tensor over samples [sample_start, sample_start +
     spp), counters list of ints, seconds)``, the seconds a dict of
     ``setup``, ``trace`` (this rank's launch, to its end), ``collective``
-    (the all-reduces, to the counters on the host) and ``fetch``.
+    (the all-reduces, to the counters on the host) and ``fetch``: the
+    spans ``mesh.prepare``, ``.trace``, ``.allreduce`` and ``.fetch``.
     Event counters sum over the ranks; ``wavefront_iterations`` is the
     largest rank's, as in ``render()`` the longest lane's."""
     from zraytrace_tpu_torch.ops.bounce_kernel import library
@@ -136,42 +155,46 @@ def sharded_sums(scene: Scene, camera: cam.Camera, params: RenderParams, mesh: M
     if spp % n_sample:
         raise ValueError(f"spp={spp} must divide over sample axis {n_sample}")
     dev = mesh.device
-    t0 = time.perf_counter()
-    if dev.type == "cuda":
-        library()
     spp_local = spp // n_sample
     n_pixels = w * h
     n_lanes = min(n_pixels, params.max_wavefront)
     n_slots = math.ceil(n_pixels / n_lanes)
     per = -(-n_lanes // n_data)
     d, s = mesh.coords
-    scene = scene.to(dev)
-    camera = camera.to(dev)
-    route = mesh_routing(scene, dev)
-    if route.tri_flash is not None:
-        check_replicated([x for x in route.tri_flash if isinstance(x, torch.Tensor)],
-                         "flash planes")
-    base = torch.arange(d * per, (d + 1) * per, dtype=torch.int32, device=dev)
-    base[base >= n_lanes] = n_pixels  # padding lanes: no pixel, idle from the start
+    with span("mesh.prepare") as prepare:
+        if dev.type == "cuda":
+            library()
+        scene = scene.to(dev)
+        camera = camera.to(dev)
+        route = mesh_routing(scene, dev)
+        if route.tri_flash is not None:
+            check_replicated([x for x in route.tri_flash if isinstance(x, torch.Tensor)],
+                             "flash planes")
+        base = torch.arange(d * per, (d + 1) * per, dtype=torch.int32, device=dev)
+        base[base >= n_lanes] = n_pixels  # padding lanes: no pixel, idle from the start
 
-    t1 = time.perf_counter()
-    sums, counters = trace_route(
-        route, scene, camera, base, params.seed, w, h, spp_local, params.max_depth,
-        sample_start + s * spp_local, n_lanes, n_pixels, n_slots)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t2 = time.perf_counter()
-    full = torch.zeros((n_slots, per * n_data, 3), dtype=torch.float32, device=dev)
-    full[:, d * per:(d + 1) * per] = sums
-    dist.all_reduce(full, group=mesh.group())
-    events, iters = counters[:C_ITERS].clone(), counters[C_ITERS:].clone()
-    dist.all_reduce(events, group=mesh.group())
-    dist.all_reduce(iters, dist.ReduceOp.MAX, group=mesh.group())
-    totals = events.cpu().tolist() + iters.cpu().tolist()  # waits for the device
-    t_dev = time.perf_counter()
-    flat = full[:, :n_lanes].reshape(n_slots * n_lanes, 3)[:n_pixels].cpu()
-    return flat, totals, dict(setup=t1 - t0, trace=t2 - t1, collective=t_dev - t2,
-                              fetch=time.perf_counter() - t_dev)
+    with span("mesh.trace") as trace:
+        sums, counters = trace_route(
+            route, scene, camera, base, params.seed, w, h, spp_local, params.max_depth,
+            sample_start + s * spp_local, n_lanes, n_pixels, n_slots)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    with span("mesh.allreduce") as collective:
+        full = torch.zeros((n_slots, per * n_data, 3), dtype=torch.float32, device=dev)
+        full[:, d * per:(d + 1) * per] = sums
+        own_rays = counters[:1].clone()
+        events, iters = counters[:C_ITERS].clone(), counters[C_ITERS:].clone()
+        dist.all_reduce(full, group=mesh.group())
+        dist.all_reduce(events, group=mesh.group())
+        dist.all_reduce(iters, dist.ReduceOp.MAX, group=mesh.group())
+        count("collective.all_reduce", 3)
+        count("collective.bytes", sum(t.numel() * t.element_size() for t in (full, events, iters)))
+        *totals, own = torch.cat([events, iters, own_rays]).cpu().tolist()  # waits for the device
+        count("mesh.rank_rays", own)
+    with span("mesh.fetch") as fetch:
+        flat = full[:, :n_lanes].reshape(n_slots * n_lanes, 3)[:n_pixels].cpu()
+    return flat, totals, dict(setup=prepare.seconds, trace=trace.seconds,
+                              collective=collective.seconds, fetch=fetch.seconds)
 
 
 def render_sharded(scene: Scene, camera: cam.Camera, params: RenderParams, mesh: Mesh,
@@ -180,13 +203,15 @@ def render_sharded(scene: Scene, camera: cam.Camera, params: RenderParams, mesh:
     calls it and gets the full ``(image (H, W, 3) f32 CPU tensor,
     RenderStats)``. spp must divide over the sample axis; the sample range
     starts at ``sample_start`` (streams are keyed by the absolute sample
-    index, so chunks of a long render resume exactly)."""
-    flat, totals, sec = sharded_sums(scene, camera, params, mesh, sample_start)
-    t0 = time.perf_counter()
-    image = (flat / params.samples_per_pixel).reshape(params.height, params.width, 3)
+    index, so chunks of a long render resume exactly). One call is the
+    span ``mesh.render``."""
+    with span("mesh.render"):
+        flat, totals, sec = sharded_sums(scene, camera, params, mesh, sample_start)
+        with span("mesh.divide") as divide:
+            image = (flat / params.samples_per_pixel).reshape(params.height, params.width, 3)
     rays, refl, bg, rec, samples, iters = totals
     return image, RenderStats(
         rays=rays, reflections=refl, background_hits=bg, recursion_depth_hits=rec,
         samples=samples, pixels=params.width * params.height, wavefront_iterations=iters,
         preprocess_seconds=sec["setup"], render_seconds=sec["trace"] + sec["collective"],
-        transfer_seconds=sec["fetch"] + time.perf_counter() - t0)
+        transfer_seconds=sec["fetch"] + divide.seconds)

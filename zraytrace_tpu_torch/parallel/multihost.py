@@ -4,7 +4,8 @@ Counterpart of ``zraytrace_tpu/parallel/multihost.py``. Every rank runs
 the same program; after ``initialize()`` the mesh of ``parallel.mesh``
 spans the group's ranks, and its renders and training steps speak only
 in terms of the mesh. Typical flow, on every rank (``torchrun`` sets the
-rendezvous in the environment):
+rendezvous and ``LOCAL_RANK`` in the environment, and ``make_mesh()``
+puts rank *r* of a host on its card ``cuda:<LOCAL_RANK>``):
 
     from zraytrace_tpu_torch.parallel import mesh, multihost
     multihost.initialize()
@@ -14,8 +15,9 @@ rendezvous in the environment):
         write_png(path, img)
 
 ``run_ranks`` starts the ranks of a group on this host in fresh
-processes (``spawn``), for tests and for several ranks that share one
-card.
+processes (``spawn``), with ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE`` set as
+``torchrun`` sets them: one rank a card (``device="cuda"``), several ranks
+on one card (``device="cuda:0"``, gloo), or on the CPU.
 """
 
 from __future__ import annotations
@@ -28,10 +30,11 @@ import shutil
 import tempfile
 import traceback
 
+import torch
 import torch.distributed as dist
 
 __all__ = ["initialize", "is_coordinator", "local_device_count", "global_device_count",
-           "run_ranks", "RankError"]
+           "rank_device", "run_ranks", "RankError"]
 
 _ENV_KEYS = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
 
@@ -72,16 +75,29 @@ class RankError(RuntimeError):
     """A rank started by ``run_ranks`` failed or did not finish in time."""
 
 
+def rank_device(rank: int, device) -> torch.device | None:
+    """The device of local rank ``rank`` when the ranks are started on
+    ``device``: the card ``cuda:<rank>`` where ``device`` names the card
+    without an index, else ``device`` itself (an indexed card that the
+    ranks share, the CPU, or None)."""
+    if device is None:
+        return None
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", rank)
+    return device
+
+
 def _rank_main(fn, rank, world_size, backend, init_file, device, timeout_s, args, results):
     # ranks on one host talk over the loopback interface
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ["LOCAL_RANK"] = str(rank)
+    os.environ["LOCAL_WORLD_SIZE"] = str(world_size)
     try:
-        if device is not None and str(device).startswith("cuda"):
-            import torch
-
-            dev = torch.device(device)
-            torch.cuda.set_device(dev if dev.index is not None else 0)
+        dev = rank_device(rank, device)
+        if dev is not None and dev.type == "cuda":
+            torch.cuda.set_device(dev)
         initialize(backend=backend, init_method=f"file://{init_file}", world_size=world_size,
                    rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
         try:
@@ -98,11 +114,19 @@ def run_ranks(fn, world_size: int, *args, backend: str = "gloo", device=None,
               timeout: float = 300.0) -> list:
     """Run ``fn(rank, world_size, *args)`` in ``world_size`` fresh
     processes (``spawn``) that form one process group of ``backend``,
-    meeting through a file in a temporary directory; ``device``, if it
-    names a card, becomes each rank's current device. ``fn`` must be a
-    module-level function, and its result picklable. Returns the results
-    by rank. Every process is joined within ``timeout`` seconds or
+    meeting through a file in a temporary directory. Rank ``r`` gets
+    ``LOCAL_RANK=r`` and ``LOCAL_WORLD_SIZE=world_size``; where ``device``
+    names a card, ``rank_device(r, device)`` becomes its current device:
+    ``"cuda"`` puts rank ``r`` on ``cuda:<r>`` (raises where this host has
+    fewer cards than ranks), ``"cuda:0"`` puts every rank there. ``fn``
+    must be a module-level function, and its result picklable. Returns the
+    results by rank. Every process is joined within ``timeout`` seconds or
     killed; a rank that raised or hung raises ``RankError``."""
+    last = rank_device(world_size - 1, device)
+    if last is not None and last.type == "cuda" and last.index >= torch.cuda.device_count():
+        raise RuntimeError(f"{world_size} ranks on {device!s} need cuda:0 to "
+                           f"cuda:{world_size - 1}; this host has {torch.cuda.device_count()} "
+                           f"CUDA device(s)")
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     tmp = tempfile.mkdtemp(prefix="zr_ranks_")

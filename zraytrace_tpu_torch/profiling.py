@@ -22,7 +22,8 @@ One store per process holds what the main paths record:
 
 Readers: ``totals()``, ``counters()``, ``counter(name)``,
 ``records(root)``, and ``print_spans()`` for an operator; ``reset()``
-empties the store.
+empties the store, and ``keep(record)`` adds a record that another process
+(a rank) made.
 """
 
 from __future__ import annotations
@@ -172,6 +173,15 @@ def records(root: str) -> list[Record]:
     """The kept records of root span ``root``, oldest first."""
     with _lock:
         return list(_records.get(root, ()))
+
+
+def keep(record: Record) -> None:
+    """Keep ``record``, made in another process (a rank started by
+    ``multihost.run_ranks``, which returns it), among this process's
+    records of its root."""
+    with _lock:
+        _records.setdefault(record.root,
+                            collections.deque(maxlen=RECORDS_PER_ROOT)).append(record)
 
 
 def reset() -> None:
