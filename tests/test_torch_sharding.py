@@ -51,6 +51,13 @@ def _counters(st):
     return [st.rays, st.reflections, st.background_hits, st.recursion_depth_hits, st.samples]
 
 
+def _record_counters():
+    """The counters of this rank's last ``mesh.render`` record."""
+    from zraytrace_tpu_torch import profiling
+
+    return dict(profiling.records("mesh.render")[-1].counters)
+
+
 def _cases_rank(rank, world, fields, cam, tris):
     """Every case on one rank: ``render_sharded`` at 8x8 on each mesh of
     MESHES with ``world`` ranks; with 4 ranks also on 4x1 at 9x7 (which
@@ -68,7 +75,8 @@ def _cases_rank(rank, world, fields, cam, tris):
         mesh = make_mesh(*shape, device="cpu")
         img, st = render_sharded(scene, camera, RenderParams(
             width=W, height=H, samples_per_pixel=SPP, max_depth=DEPTH), mesh)
-        out[("render", shape)] = (img.numpy(), _counters(st), st.wavefront_iterations)
+        out[("render", shape)] = (img.numpy(), _counters(st), st.wavefront_iterations,
+                                  _record_counters())
     if world != 4:
         return out
     out["env"] = (os.environ["LOCAL_RANK"], os.environ["LOCAL_WORLD_SIZE"])
@@ -76,7 +84,8 @@ def _cases_rank(rank, world, fields, cam, tris):
     mesh = make_mesh(4, 1, device="cpu")
     img, st = render_sharded(scene, camera, RenderParams(
         width=9, height=7, samples_per_pixel=SPP, max_depth=DEPTH), mesh)
-    out[("render", "9x7")] = (img.numpy(), _counters(st), st.wavefront_iterations)
+    out[("render", "9x7")] = (img.numpy(), _counters(st), st.wavefront_iterations,
+                              _record_counters())
 
     a, b, c, o, d = (torch.from_numpy(x) for x in tris)
     for shape in TRI_MESHES:
@@ -98,23 +107,35 @@ def _cases_rank(rank, world, fields, cam, tris):
 def _three_balls_rank():
     """``render_sharded`` of the three-balls scene at ``BALLS`` on each of
     ``BALLS_MESHES``: the image, the counters, and the call's
-    ``mesh.render`` record (its span names and counters)."""
+    ``mesh.render`` record (its span names and counters), and the
+    iterations."""
     from zraytrace_tpu_torch import profiling
     from zraytrace_tpu_torch.parallel.mesh import make_mesh, render_sharded
     from zraytrace_tpu_torch.scenes import build_scene
 
     built = build_scene(1, device="cpu")
-    params = RenderParams(width=BALLS["width"], height=BALLS["height"],
-                          samples_per_pixel=BALLS["spp"], max_depth=BALLS["depth"],
-                          seed=BALLS["seed"])
     out = {}
     for shape in BALLS_MESHES:
-        img, st = render_sharded(built.scene, built.camera, params,
+        img, st = render_sharded(built.scene, built.camera, _balls_params(),
                                  make_mesh(*shape, device="cpu"))
         rec = profiling.records("mesh.render")[-1]
         out[("balls", shape)] = (img.numpy(), _counters(st),
-                                 {name for name, _ in rec.spans}, dict(rec.counters))
+                                 {name for name, _ in rec.spans}, dict(rec.counters),
+                                 st.wavefront_iterations)
     return out
+
+
+def _balls_params():
+    return RenderParams(width=BALLS["width"], height=BALLS["height"],
+                        samples_per_pixel=BALLS["spp"], max_depth=BALLS["depth"],
+                        seed=BALLS["seed"])
+
+
+def _blocks(spp, n_data):
+    """The sample blocks of a rank, as the lane map cuts them: ``min(n_data,
+    spp)`` blocks of ``ceil(spp / that)``, the last holding the rest."""
+    q = -(-spp // min(n_data, spp))
+    return [(off, min(q, spp - off)) for off in range(0, spp, q)]
 
 
 def _triangles(seed=3, n_tris=13, n_rays=64):
@@ -160,41 +181,54 @@ def _jax_mesh(shape):
                      devices=jax.devices()[:shape[0] * shape[1]])
 
 
-@pytest.mark.parametrize("case", [*MESHES, "9x7"], ids=str)
-def test_render_sharded(ranks, mini, case):
-    """Against the port's ``render()`` on the CPU (counters exact, the
-    image bit for bit with one sample shard, else within 1e-5) and JAX's
-    ``render_sharded`` on a mesh of the same shape (counters exact, the
-    image within 1e-5). Every rank returns the same image."""
-    from zraytrace_tpu.config import RenderParams as JaxParams
-    from zraytrace_tpu.parallel.mesh import render_sharded as jax_render_sharded
-    from zraytrace_tpu_torch.render import render
-
-    (jscene, jcam), fields, cam = mini
+def _case(ranks, fields, cam, case):
+    """A render case's mesh shape, image size and every rank's
+    ``(image, counters, iterations, record counters)``."""
     shape = (4, 1) if case == "9x7" else case
     w, h = (9, 7) if case == "9x7" else (W, H)
     if shape[0] * shape[1] == 4:
-        key = ("render", case if case == "9x7" else shape)
-        got = [r[key] for r in ranks]
-    else:  # the one-rank mesh, in a group of its own
-        from zraytrace_tpu_torch.parallel.multihost import run_ranks
+        return shape, (w, h), [r[("render", case)] for r in ranks]
+    # the one-rank mesh, in a group of its own
+    from zraytrace_tpu_torch.parallel.multihost import run_ranks
 
-        got = [r[("render", shape)] for r in run_ranks(_cases_rank, 1, fields, cam,
-                                                       _triangles(), timeout=120)]
-    img, counters, iters = got[0]
+    return shape, (w, h), [r[("render", shape)] for r in run_ranks(
+        _cases_rank, 1, fields, cam, _triangles(), timeout=120)]
+
+
+@pytest.mark.parametrize("case", [*MESHES, "9x7"], ids=str)
+def test_render_sharded(ranks, mini, case):
+    """Against the sample blocks' contract (``reference_sums``: the
+    in-order block sums of ``render.trace_lanes`` over each rank's sample
+    ranges, bit for bit where at most two sample shards meet; iterations
+    the longest block lane's), the port's ``render()`` on the CPU (counters
+    exact, the image within 1e-5: the block sums add in another order than
+    one running sum; bit for bit on one rank) and JAX's ``render_sharded``
+    on a mesh of the same shape (counters exact, the image within 1e-5).
+    Every rank returns the same image."""
+    from zraytrace_tpu.config import RenderParams as JaxParams
+    from zraytrace_tpu.parallel.mesh import render_sharded as jax_render_sharded
+    from sharded_reference import reference_sums
+    from zraytrace_tpu_torch.render import render
+
+    (jscene, jcam), fields, cam = mini
+    shape, (w, h), got = _case(ranks, fields, cam, case)
+    img, counters, iters, _ = got[0]
     for other in got[1:]:
         np.testing.assert_array_equal(other[0], img)
-        assert other[1:] == (counters, iters)
+        assert other[1:3] == (counters, iters)
 
     scene, camera = _cross(fields, cam)
-    want_img, want = render(scene, camera, RenderParams(width=w, height=h, samples_per_pixel=SPP,
-                                                        max_depth=DEPTH), device="cpu")
+    params = RenderParams(width=w, height=h, samples_per_pixel=SPP, max_depth=DEPTH)
+    want_img, want = render(scene, camera, params, device="cpu")
     assert counters == _counters(want)
-    if shape[1] == 1:
+    np.testing.assert_allclose(img, want_img.numpy(), atol=1e-5, rtol=0)
+    sums, ref_counters = reference_sums(scene, camera, params, *shape)
+    assert ref_counters == [*counters, iters]
+    if shape[1] <= 2:
+        np.testing.assert_array_equal(img, (sums / SPP).reshape(h, w, 3).numpy())
+    if shape == (1, 1):
         np.testing.assert_array_equal(img, want_img.numpy())
         assert iters == want.wavefront_iterations
-    else:
-        np.testing.assert_allclose(img, want_img.numpy(), atol=1e-5, rtol=0)
 
     jimg, jst = jax_render_sharded(jscene, jcam, JaxParams(
         width=w, height=h, samples_per_pixel=SPP, max_depth=DEPTH), _jax_mesh(shape))
@@ -206,11 +240,12 @@ def test_render_sharded(ranks, mini, case):
 def test_render_sharded_three_balls_against_the_reference(ranks, shape):
     """The three-balls scene (textured spheres, metal, glass) at a cut size
     against the benchmark's plain reference over every pixel: counters
-    exact; with one sample shard the image equal bit for bit (the shards
-    trace ``render()``'s lanes, and ``render()`` on the CPU equals the
-    reference bit for bit); with two, within 1e-5, since the two shards'
-    partial sums add in another order than one running sum over the
-    samples (float32 rounding of values below 2)."""
+    exact; the image equal bit for bit to the reference's paths summed as
+    the lane map sums them (each rank's sample blocks in sample order from
+    zero, the blocks added in block order, then the two sample shards:
+    ``render()`` on the CPU equals the reference path for path), and
+    within 1e-5 of the reference's one running sum over the samples
+    (float32 rounding of values below 2)."""
     from benchmark.reference import render as ref_render
     from benchmark.reference import scene as ref_scene
 
@@ -221,35 +256,143 @@ def test_render_sharded_three_balls_against_the_reference(ranks, shape):
     for r in ranks[1:]:
         np.testing.assert_array_equal(r[("balls", shape)][0], img)
         assert r[("balls", shape)][1] == counters
-    w, h = BALLS["width"], BALLS["height"]
-    vals, counts = ref_render.render_pixels(
-        ref_scene.build(desc, repo, "cpu"), BALLS["seed"], torch.arange(w * h), w, h,
-        BALLS["spp"], BALLS["depth"])
+    w, h, spp = BALLS["width"], BALLS["height"], BALLS["spp"]
+    scene = ref_scene.build(desc, repo, "cpu")
+    vals, counts = ref_render.render_pixels(scene, BALLS["seed"], torch.arange(w * h), w, h,
+                                            spp, BALLS["depth"])
     assert counters == [counts[k] for k in ("rays", "reflections", "background_hits",
                                             "recursion_depth_hits", "samples")]
-    want = vals.reshape(h, w, 3).numpy()
-    if shape[1] == 1:
-        np.testing.assert_array_equal(img, want)
-    else:
-        np.testing.assert_allclose(img, want, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(img, vals.reshape(h, w, 3).numpy(), atol=1e-5, rtol=0)
+
+    rad, _ = ref_render.trace_paths(scene, None, BALLS["seed"],
+                                    torch.arange(w * h).repeat_interleave(spp),
+                                    torch.arange(spp).repeat(w * h), w, h, BALLS["depth"],
+                                    torch.float32)
+    rad = rad.reshape(w * h, spp, 3)
+    n_data, n_sample = shape
+    local = spp // n_sample
+    total = None
+    for s in range(n_sample):
+        shard = None
+        for off, count in _blocks(local, n_data):
+            acc = torch.zeros((w * h, 3))
+            for k in range(s * local + off, s * local + off + count):
+                acc = acc + rad[:, k]
+            shard = acc if shard is None else shard + acc
+        total = shard if total is None else total + shard
+    want = total / torch.full((), float(spp))
+    np.testing.assert_array_equal(img, want.reshape(h, w, 3).numpy())
 
 
 @pytest.mark.parametrize("shape", BALLS_MESHES, ids=str)
 def test_render_sharded_spans_and_counters(ranks, shape):
     """Each rank's ``mesh.render`` record holds its five child spans; three
-    all-reduces a call, of the slot-sum buffer and the counters' bytes;
-    the ranks' own rays sum to the image's."""
+    all-reduces a call, of the slot-sum buffer (every rank's lanes: its
+    warps of 32, padded to one count) and the counters' bytes; the ranks'
+    own rays sum to the image's."""
     n_data = shape[0]
-    per = -(-BALLS["width"] * BALLS["height"] // n_data)
+    per = -(-(-(-BALLS["width"] * BALLS["height"] // 32)) // n_data) * 32
     buffer_bytes = per * n_data * 3 * 4 + 6 * 8  # f32 sums, five events and the iterations
     own = 0
     for r in ranks:
-        _, counters, names, counts = r[("balls", shape)]
+        _, counters, names, counts, _ = r[("balls", shape)]
         assert MESH_CHILDREN <= names
         assert counts["collective.all_reduce"] == 3
         assert counts["collective.bytes"] == buffer_bytes
         own += counts["mesh.rank_rays"]
     assert own == ranks[0][("balls", shape)][1][0]
+
+
+LANE_MAP_CASES = [(4, 1), (2, 2), "9x7", "balls (4, 1)", "balls (2, 2)"]
+
+
+@pytest.mark.parametrize("case", LANE_MAP_CASES, ids=str)
+def test_sharded_lane_map(ranks, mini, case):
+    """Where each rank's work goes: ``rank_lanes`` gives every lane of
+    ``render()`` to exactly one rank, in whole warps of 32 consecutive
+    lanes, the ranks' real lanes differing by at most one warp; each
+    rank's ``mesh.lanes`` is its pixel lanes times its sample blocks
+    (``render()``'s lane count, plus under a warp of padding a rank, where
+    the blocks are as many as the ranks); the ranks' ``mesh.rank_rays``
+    sum to the image's rays; the iterations are the longest block lane's
+    (``reference_sums``)."""
+    from sharded_reference import reference_sums
+    from zraytrace_tpu_torch.parallel.mesh import rank_lanes
+    from zraytrace_tpu_torch.scenes import build_scene
+
+    _, fields, cam = mini
+    if isinstance(case, str) and case.startswith("balls"):
+        shape = BALLS_MESHES[0] if "(4, 1)" in case else BALLS_MESHES[1]
+        w, h, spp = BALLS["width"], BALLS["height"], BALLS["spp"]
+        params = _balls_params()
+        got = [(r[("balls", shape)][0], r[("balls", shape)][1], r[("balls", shape)][4],
+                r[("balls", shape)][3]) for r in ranks]
+        built = build_scene(1, device="cpu")
+        scene, camera = built.scene, built.camera
+    else:
+        shape, (w, h), got = _case(ranks, fields, cam, case)
+        spp = SPP
+        params = RenderParams(width=w, height=h, samples_per_pixel=SPP, max_depth=DEPTH)
+        scene, camera = _cross(fields, cam)
+    n_data, n_sample = shape
+    n = w * h
+    lanes = [rank_lanes(n, n_data, d, n, "cpu") for d in range(n_data)]
+    per = lanes[0].shape[0]
+    assert all(x.shape == (per,) and per % 32 == 0 for x in lanes)
+    real = torch.cat(lanes)
+    real = real[real < n]
+    assert torch.equal(real.sort().values, torch.arange(n, dtype=torch.int32))
+    assert all(bool(((x == n) | (x < n)).all()) for x in lanes)
+    for x in lanes:  # whole warps of render(): 32 consecutive lanes from a multiple of 32
+        warps = x.reshape(-1, 32)
+        live = warps[:, 0] < n
+        assert bool((warps[live, 0] % 32 == 0).all())
+        first = warps[live, :1]
+        assert bool(((warps[live] == first + torch.arange(32)) | (warps[live] == n)).all())
+    sizes = [int((x < n).sum()) for x in lanes]
+    assert max(sizes) - min(sizes) <= 32
+
+    blocks = len(_blocks(spp // n_sample, n_data))
+    assert [c["mesh.lanes"] for *_, c in got] == [blocks * per] * len(got)
+    if blocks == n_data:
+        assert n <= blocks * per < n + 32 * n_data
+    assert sum(c["mesh.rank_rays"] for *_, c in got) == got[0][1][0]
+    _, ref_counters = reference_sums(scene, camera, params, *shape)
+    assert ref_counters == [*got[0][1], got[0][2]]
+
+
+@pytest.mark.parametrize("spp,blocks,want", [
+    (4, 4, [(0, 1), (1, 1), (2, 1), (3, 1)]),
+    (1000, 4, [(0, 250), (250, 250), (500, 250), (750, 250)]),
+    (7, 4, [(0, 2), (2, 2), (4, 2), (6, 1)]),
+    (5, 4, [(0, 2), (2, 2), (4, 1)]),  # ceil(5 / 4) = 2: three blocks, none empty
+    (2, 4, [(0, 1), (1, 1)]),
+    (9, 1, [(0, 9)]),
+])
+def test_sample_blocks(spp, blocks, want):
+    from zraytrace_tpu_torch.render import sample_blocks
+
+    assert sample_blocks(spp, blocks) == want == _blocks(spp, blocks)
+
+
+@pytest.mark.parametrize("n_lanes,n_data", [(1_000_000, 4), (63, 4), (120, 2), (33, 1)])
+def test_rank_lanes_deal_warps(n_lanes, n_data):
+    """The lane map at the benchmark's size (1,000,000 lanes over 4 ranks:
+    7,813 warps on ranks 0 and 1, 7,812 and a padding warp on ranks 2 and
+    3) and at ragged ones: a partition of the lanes into whole warps, dealt
+    round-robin."""
+    from zraytrace_tpu_torch.parallel.mesh import rank_lanes
+
+    lanes = [rank_lanes(n_lanes, n_data, d, n_lanes, "cpu") for d in range(n_data)]
+    chunks = -(-n_lanes // 32)
+    for d, x in enumerate(lanes):
+        assert x.shape == (-(-chunks // n_data) * 32,)
+        want = (torch.arange(x.shape[0] // 32) * n_data + d)[:, None] * 32 + torch.arange(32)
+        want = want.reshape(-1).to(torch.int32)
+        assert torch.equal(x, torch.where(want < n_lanes, want, n_lanes))
+    real = torch.cat(lanes)
+    assert torch.equal(real[real < n_lanes].sort().values,
+                       torch.arange(n_lanes, dtype=torch.int32))
 
 
 def test_run_ranks_sets_the_local_rank(ranks):

@@ -9,9 +9,10 @@
 // per-pixel slot sums (n_slots, N, 3) f32 and the six event counters.
 //
 // Design. One thread per lane: lane i traces pixels base[i] + k*stride,
-// k < n_slots, each pixel's samples one after another, each path to its
-// end. The TPU kernel's deferred texel slots, records, texel cache,
-// per-launch gather, roll-fold, balanced lane map and launch loop existed
+// k < n_slots, each pixel's samples one after another (or one block of
+// them: sample blocks, below), each path to its end. The TPU kernel's
+// deferred texel slots, records, texel cache, per-launch gather,
+// roll-fold, balanced lane map and launch loop existed
 // only because Mosaic can neither gather inside a kernel nor skip a
 // branch; here a textured hit reads its one nearest texel straight from
 // global memory (the 12.6 MB atlas stays in the 50 MB L2).
@@ -58,6 +59,24 @@
 // triangle tables stay in global memory (the teapot's 121 KB and 405 KB
 // sit in L2). The root box is the union of the chunk boxes, so it
 // contains every triangle.
+//
+// Sample blocks (the template parameter BLOCKED, so the kernel render()
+// runs is compiled as before). A rank of parallel/mesh.py's data axis
+// owns a 1/n_data share of render()'s lanes; one thread per lane would
+// launch too few warps to fill the card, and its longest lanes, tracing
+// every sample of a glass pixel, would set the launch's end. So its
+// samples are cut into n_blocks contiguous blocks of block_spp (the last
+// shorter) and its lanes are given once a block, warp by warp: warp w
+// traces its 32 lanes over block w % n_blocks, so a rank launches
+// render()'s lane count and consecutive warps trace the same 32 pixels
+// over the blocks in turn. (All of one block's lanes before the next
+// block's took 23.4 ms against 17.6 ms a rank at the showcase's size on
+// one H100: resident warps then spread over four times the image.) The
+// wrapper adds a pixel's block sums in block order. A lane over one block
+// is the plain wavefront's lane over that block's samples, so a launch
+// equals the plain traces of the blocks' ranges bit for bit; the image
+// differs from one running sum over all samples only by the order of the
+// adds.
 //
 // Numerics follow the plain PyTorch version operation by operation:
 // explicit left-to-right component sums, division where the reference
@@ -167,7 +186,7 @@ struct Mesh {
   int n_nodes;
 };
 
-template <bool MESH, bool COUNT>
+template <bool MESH, bool COUNT, bool BLOCKED>
 __global__ void __launch_bounds__(BLOCK)
 bounce_kernel(const float* __restrict__ sph_g, int n_sph,
               const float* __restrict__ mats_g, int n_mats,
@@ -178,7 +197,7 @@ bounce_kernel(const float* __restrict__ sph_g, int n_sph,
               int pixel_stride, int n_pixels, int n_slots,
               float* __restrict__ slot_sums,
               unsigned long long* __restrict__ counters,
-              unsigned long long* __restrict__ work) {
+              unsigned long long* __restrict__ work, int n_blocks, int block_spp) {
   __shared__ float sph[MAX_SPHERES * S_COLS];
   __shared__ float4 sph_rows[MAX_SPHERES];  // the winner's (bounce_common.cuh sphere_row)
   __shared__ float mats[MAX_MATS * M_COLS];
@@ -207,6 +226,11 @@ bounce_kernel(const float* __restrict__ sph_g, int n_sph,
   // the warp's, kept by every lane
   unsigned long long n_iters = 0, n_branches = 0, n_warp_nodes = 0;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (BLOCKED) {  // this thread's block of samples: warps dealt to the blocks in turn
+    const int b = (lane / 32) % n_blocks;
+    sample_start += b * block_spp;
+    spp = min(block_spp, spp - b * block_spp);
+  }
   const int sample_end = sample_start + spp;
 
   // The loop state: slot k of the lane (pixel b0 + k*stride), sample s,
@@ -446,18 +470,15 @@ void launch(int grid, cudaStream_t stream, const float* sph, int n_sph, const fl
             int n_mats, const float* cam, const float* atlas, int atlas_w, const Mesh& mesh,
             const int* base, int n_lanes, int width, int height, int sample_start, int spp,
             int max_depth, unsigned int seed, int pixel_stride, int n_pixels, int n_slots,
-            float* slot_sums, unsigned long long* counters, unsigned long long* work) {
-  if (work) {
-    bounce_kernel<MESH, true><<<grid, BLOCK, 0, stream>>>(
-        sph, n_sph, mats, n_mats, cam, atlas, atlas_w, mesh, base, n_lanes, width, height,
-        sample_start, spp, max_depth, seed, pixel_stride, n_pixels, n_slots, slot_sums,
-        counters, work);
-  } else {
-    bounce_kernel<MESH, false><<<grid, BLOCK, 0, stream>>>(
-        sph, n_sph, mats, n_mats, cam, atlas, atlas_w, mesh, base, n_lanes, width, height,
-        sample_start, spp, max_depth, seed, pixel_stride, n_pixels, n_slots, slot_sums,
-        counters, work);
-  }
+            float* slot_sums, unsigned long long* counters, unsigned long long* work,
+            int n_blocks, int block_spp) {
+  const auto kernel = work ? bounce_kernel<MESH, true, false>
+                      : n_blocks > 1 ? bounce_kernel<MESH, false, true>
+                                     : bounce_kernel<MESH, false, false>;
+  kernel<<<grid, BLOCK, 0, stream>>>(
+      sph, n_sph, mats, n_mats, cam, atlas, atlas_w, mesh, base, n_lanes, width, height,
+      sample_start, spp, max_depth, seed, pixel_stride, n_pixels, n_slots, slot_sums, counters,
+      work, n_blocks, block_spp);
 }
 
 }  // namespace
@@ -465,7 +486,41 @@ void launch(int grid, cudaStream_t stream, const float* sph, int n_sph, const fl
 // n_nodes == 0: sphere mode (nodes, rows, attrs and box unused);
 // n_nodes > 0: mesh mode, where n_sph may be 0; nodes and rows 16-byte
 // aligned. work: null, or int64 [W_N] that receives the work done (the
-// slower counting kernel).
+// slower counting kernel; one block only). n_blocks > 1: sample blocks,
+// lane i tracing samples [sample_start + b * block_spp, min(that +
+// block_spp, sample_start + spp)) of block b = (i / 32) % n_blocks; the
+// blocks cover the samples and none is empty.
+extern "C" int zr_bounce_launch_blocks(const float* sph, int n_sph, const float* mats,
+                                       int n_mats, const float* cam, const float* atlas,
+                                       int atlas_w, const float* nodes, const float* rows,
+                                       const float* attrs, const float* box, int n_nodes,
+                                       unsigned long long* work, const int* base, int n_lanes,
+                                       int width, int height, int sample_start, int spp,
+                                       int max_depth, unsigned int seed, int pixel_stride,
+                                       int n_pixels, int n_slots, int n_blocks, int block_spp,
+                                       float* slot_sums, unsigned long long* counters,
+                                       void* stream) {
+  const bool mesh_mode = n_nodes > 0;
+  if (n_sph < (mesh_mode ? 0 : 1) || n_sph > MAX_SPHERES || n_mats < 1 ||
+      n_mats > MAX_MATS || n_nodes < 0 ||
+      (mesh_mode && (((uintptr_t)nodes | (uintptr_t)rows) & 15)))
+    return (int)cudaErrorInvalidValue;
+  if (n_blocks != 1 && (n_blocks < 1 || work || block_spp < 1 ||
+                        (long long)(n_blocks - 1) * block_spp >= spp ||
+                        (long long)n_blocks * block_spp < spp))
+    return (int)cudaErrorInvalidValue;
+  if (n_lanes <= 0) return 0;
+  const int grid = (n_lanes + BLOCK - 1) / BLOCK;
+  const Mesh mesh{reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(rows),
+                  attrs, box, n_nodes};
+  (mesh_mode ? launch<true> : launch<false>)(
+      grid, (cudaStream_t)stream, sph, n_sph, mats, n_mats, cam, atlas, atlas_w, mesh, base,
+      n_lanes, width, height, sample_start, spp, max_depth, seed, pixel_stride, n_pixels,
+      n_slots, slot_sums, counters, work, n_blocks, block_spp);
+  return (int)cudaGetLastError();
+}
+
+// One block: render()'s launch, the interface builds of other checkouts share.
 extern "C" int zr_bounce_launch(const float* sph, int n_sph, const float* mats,
                                 int n_mats, const float* cam, const float* atlas,
                                 int atlas_w, const float* nodes, const float* rows,
@@ -475,20 +530,10 @@ extern "C" int zr_bounce_launch(const float* sph, int n_sph, const float* mats,
                                 unsigned int seed, int pixel_stride, int n_pixels,
                                 int n_slots, float* slot_sums,
                                 unsigned long long* counters, void* stream) {
-  const bool mesh_mode = n_nodes > 0;
-  if (n_sph < (mesh_mode ? 0 : 1) || n_sph > MAX_SPHERES || n_mats < 1 ||
-      n_mats > MAX_MATS || n_nodes < 0 ||
-      (mesh_mode && (((uintptr_t)nodes | (uintptr_t)rows) & 15)))
-    return (int)cudaErrorInvalidValue;
-  if (n_lanes <= 0) return 0;
-  const int grid = (n_lanes + BLOCK - 1) / BLOCK;
-  const Mesh mesh{reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(rows),
-                  attrs, box, n_nodes};
-  (mesh_mode ? launch<true> : launch<false>)(
-      grid, (cudaStream_t)stream, sph, n_sph, mats, n_mats, cam, atlas, atlas_w, mesh, base,
-      n_lanes, width, height, sample_start, spp, max_depth, seed, pixel_stride, n_pixels,
-      n_slots, slot_sums, counters, work);
-  return (int)cudaGetLastError();
+  return zr_bounce_launch_blocks(sph, n_sph, mats, n_mats, cam, atlas, atlas_w, nodes, rows,
+                                 attrs, box, n_nodes, work, base, n_lanes, width, height,
+                                 sample_start, spp, max_depth, seed, pixel_stride, n_pixels,
+                                 n_slots, 1, spp, slot_sums, counters, stream);
 }
 
 extern "C" const char* zr_error_string(int code) {

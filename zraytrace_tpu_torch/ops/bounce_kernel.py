@@ -29,7 +29,7 @@ from zraytrace_tpu_torch.ops.flash_intersect import TriPlanes, check_planes
 from zraytrace_tpu_torch.ops.mesh_bvh import WORK_FIELDS as BVH_WORK_FIELDS
 from zraytrace_tpu_torch.ops.mesh_bvh import check_tables
 from zraytrace_tpu_torch.profiling import count
-from zraytrace_tpu_torch.render import MAX_SPHERES, N_COUNTERS
+from zraytrace_tpu_torch.render import MAX_SPHERES, N_COUNTERS, add_blocks, sample_blocks
 from zraytrace_tpu_torch.render import wavefront_trace as wavefront_trace_reference
 from zraytrace_tpu_torch.scene import Scene
 
@@ -85,12 +85,20 @@ def library() -> ctypes.CDLL:
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare ``zr_bounce_launch``'s C signature on a build of the kernel
-    (this checkout's, or another's of the same interface)."""
+    (this checkout's, or another's of the same interface), and
+    ``zr_bounce_launch_blocks``' where the build has it. The guard, and
+    the one-block ``zr_bounce_launch`` that forwards to the blocked entry,
+    serve only ``probes/mesh_ab.py``'s builds of other checkouts, whose
+    sources predate the sample blocks: drop both once it no longer A/Bs
+    against such a source."""
     if lib.zr_bounce_launch.argtypes is None:
-        lib.zr_bounce_launch.argtypes = [
-            _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
-            _I, _I, _U, _I, _I, _I, _P, _P, _P]
+        head = [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                _I, _I, _U, _I, _I, _I]
+        lib.zr_bounce_launch.argtypes = head + [_P, _P, _P]
         lib.zr_bounce_launch.restype = _I
+        if hasattr(lib, "zr_bounce_launch_blocks"):
+            lib.zr_bounce_launch_blocks.argtypes = head + [_I, _I, _P, _P, _P]
+            lib.zr_bounce_launch_blocks.restype = _I
         lib.zr_error_string.argtypes = [_I]
         lib.zr_error_string.restype = ctypes.c_char_p
     return lib
@@ -148,23 +156,27 @@ def check_mesh(scene: Scene, tri_flash: TriPlanes | None) -> None:
 def bounce_trace(scene: Scene, camera: Camera, pixel_base: torch.Tensor, seed,
                  width, height, spp, max_depth, sample_start=0, pixel_stride=None,
                  n_pixels=None, n_slots: int = 1, tri_flash: TriPlanes | None = None,
-                 work: torch.Tensor | None = None):
+                 work: torch.Tensor | None = None, blocks: int = 1):
     """Trace samples ``[sample_start, sample_start + spp)`` of every pixel
     of every lane. Arguments and result are those of
     ``wavefront_trace_reference``: ``(slot_sums (n_slots, N, 3) f32,
-    counters (6,) int64)``. A scene with triangles needs ``tri_flash``,
+    counters (6,) int64)``. ``blocks`` > 1 launches the kernel's sample
+    blocks (``render.sample_blocks``' B blocks; each warp of lanes B times,
+    one launch) and adds each pixel's B sums in block order, as the plain
+    version joins B traces. A scene with triangles needs ``tri_flash``,
     its flash planes with the const-material ``attrs`` table and the BVH
     walk's tables, on a CUDA device (``render.flash_pack_cached``); on the
     CPU they are optional (without them the plain wavefront uses the brute
     force; with them its chunk scan, the contract).
     ``work``, an int64 tensor of ``len(WORK_FIELDS)`` on the card, has the
     work done added to it by a counting build of the kernel (slower; for
-    pricing a bound, not for rendering). The plain version counts nothing."""
+    pricing a bound, not for rendering; one block). The plain version
+    counts nothing."""
     dev = pixel_base.device
     if dev.type == "cpu":
         return wavefront_trace_reference(
             scene, camera, pixel_base, seed, width, height, spp, max_depth,
-            sample_start, pixel_stride, n_pixels, n_slots, tri_flash=tri_flash)
+            sample_start, pixel_stride, n_pixels, n_slots, tri_flash=tri_flash, blocks=blocks)
     if dev.type != "cuda":
         raise ValueError(f"bounce_trace runs on cpu or cuda tensors, not {dev.type}")
 
@@ -202,7 +214,17 @@ def bounce_trace(scene: Scene, camera: Camera, pixel_base: torch.Tensor, seed,
         raise ValueError("pixel ids must fit in int32")
     if sample_start < 0 or sample_start + spp >= 1 << 31 or spp < 1:
         raise ValueError("sample range must lie in [0, 2^31)")
+    ranges = sample_blocks(spp, blocks)
+    n_blocks = len(ranges)
+    if work is not None and n_blocks > 1:
+        raise ValueError("the counting build traces one sample block")
+    warps = -(-n // 32)
+    if n_blocks * warps * 32 >= 1 << 31:
+        raise ValueError("blocks x lanes must fit in int32")
     base = pixel_base.contiguous()
+    if n_blocks > 1:  # each warp of lanes once a block, the blocks in turn; padding idles
+        base = torch.cat([base, base.new_full((warps * 32 - n,), n_pix)])
+        base = base.view(warps, 1, 32).expand(warps, n_blocks, 32).reshape(-1)
     atlas = scene.atlas.contiguous()
     spheres, mats, cam = scene_tables(scene, camera)
 
@@ -213,21 +235,27 @@ def bounce_trace(scene: Scene, camera: Camera, pixel_base: torch.Tensor, seed,
     else:
         mesh_ptrs = (None, None, None, None, 0)
 
-    slot_sums = torch.zeros((n_slots, n, 3), dtype=torch.float32, device=dev)
+    slot_sums = torch.zeros((n_slots, base.shape[0], 3), dtype=torch.float32, device=dev)
     counters = torch.zeros((N_COUNTERS,), dtype=torch.int64, device=dev)
     lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.zr_bounce_launch(
+        err = lib.zr_bounce_launch_blocks(
             spheres.data_ptr(), spheres.shape[0], mats.data_ptr(), mats.shape[0],
             cam.data_ptr(), atlas.data_ptr(), atlas.shape[2], *mesh_ptrs,
             None if work is None else work.data_ptr(), base.data_ptr(),
-            n, width, height, sample_start, spp, max_depth, int(seed) & 0xFFFFFFFF,
-            stride, n_pix, n_slots, slot_sums.data_ptr(), counters.data_ptr(), stream)
+            base.shape[0], width, height, sample_start, spp, max_depth, int(seed) & 0xFFFFFFFF,
+            stride, n_pix, n_slots, n_blocks, ranges[0][1], slot_sums.data_ptr(),
+            counters.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"bounce kernel launch failed: {lib.zr_error_string(err).decode()}")
     count("launch.bounce")
     if mesh:
         count("launch.bounce_mesh")
-    return slot_sums, counters
+    if n_blocks == 1:
+        return slot_sums, counters
+    per_block = slot_sums.view(n_slots, warps, n_blocks, 32, 3)
+    sums, _ = add_blocks([(per_block[:, :, 0], counters)]
+                         + [(per_block[:, :, b], None) for b in range(1, n_blocks)])
+    return sums.reshape(n_slots, warps * 32, 3)[:, :n].contiguous(), counters

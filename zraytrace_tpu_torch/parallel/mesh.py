@@ -7,20 +7,32 @@ over ``sample``. Scene and camera are replicated: every rank holds its
 own copy. Collectives are ``torch.distributed``'s (NCCL between cards,
 gloo between ranks that share one).
 
-Each rank traces a contiguous slice of ``render()``'s lanes with the same
-pixel stride, through the same route (``render.mesh_routing``: on the card
-the bounce kernel, in mesh mode for mesh scenes, or for a mesh with
-image-textured materials the wavefront with the flash kernel), so a lane
-traces the pixels it
-would trace in ``render()``, in the same order: with one sample shard the
-image equals ``render()``'s bit for bit. Padding lanes (when the lanes do
-not divide over ``data``) idle from the start, so counters are exact.
+The lane map (``rank_lanes``): ``render()``'s lanes are cut into chunks
+of 32, one warp each, dealt round-robin over ``data``: rank *d* owns
+chunks *d*, *d* + n_data, ... So each of its warps is one of ``render()``'s
+warps (the same pixels side by side), every rank gets every part of the
+image, and the ranks' work evens out. Padding lanes (when the chunks do
+not divide over ``data``) take the pixel id ``n_pixels`` and idle from
+the start, so counters are exact. A rank traces its lanes with the same
+pixel stride, through the same route (``render.mesh_routing``: on the
+card the bounce kernel, in mesh mode for mesh scenes, or for a mesh with
+image-textured materials the wavefront with the flash kernel), with its
+samples cut into ``min(n_data, spp)`` contiguous blocks
+(``render.sample_blocks``), each block on lanes of its own: a rank's one
+launch has as many lanes as ``render()``'s (counter ``mesh.lanes``). A
+pixel's sum is its block sums added in block order, so the image equals,
+bit for bit, the in-order sum of ``render.trace_lanes`` over the blocks'
+ranges (over ``sample`` shards, their sum after that), and differs from
+``render()``'s one running sum by the order of the adds; event counters
+equal ``render()``'s, and ``wavefront_iterations`` is the longest lane's
+steps over one block. On a one-rank mesh the image is ``render()``'s bit
+for bit.
 
-The image is assembled with one all-reduce: each rank adds its slot sums
-into its slice of a zeroed buffer of all lanes, so over ``data`` one
-nonzero term meets zeros (exact), and over ``sample`` the partial sums
-add. All-reduce is the one collective gloo runs on CUDA tensors besides
-broadcast.
+The image is assembled with one all-reduce: each rank writes its slot
+sums into its lanes of a zeroed buffer of all lanes (a strided view), so
+over ``data`` one nonzero term meets zeros (exact), and over ``sample``
+the partial sums add. All-reduce is the one collective gloo runs on CUDA
+tensors besides broadcast.
 
 Rank *r* of a host computes on its own card: ``make_mesh()`` takes
 ``cuda:<LOCAL_RANK>`` (``torchrun`` sets it, as does
@@ -32,8 +44,10 @@ Spans (``profiling``): ``mesh.render``, one image on one rank, with
 ``mesh.trace`` (this rank's launch, to its synchronise), ``mesh.allreduce``
 (the three all-reduces, to the counters on the host), ``mesh.fetch`` and
 ``mesh.divide``. Counters: ``collective.all_reduce`` (calls),
-``collective.bytes`` (the bytes this rank hands to them) and
-``mesh.rank_rays`` (this rank's own rays, before the sum).
+``collective.bytes`` (the bytes this rank hands to them),
+``mesh.rank_rays`` (this rank's own rays, before the sum) and
+``mesh.lanes`` (the lanes of this rank's launch: its pixel lanes times
+its sample blocks).
 
 The TPU engine's lane map balancing, tile-coherent fallback, sample
 interleave and lane granularity are its machinery and have no
@@ -55,10 +69,11 @@ from zraytrace_tpu_torch.render import C_ITERS, RenderStats
 from zraytrace_tpu_torch.scene import Scene
 
 __all__ = ["DATA_AXIS", "SAMPLE_AXIS", "Mesh", "make_mesh", "render_sharded", "sharded_sums",
-           "check_replicated"]
+           "check_replicated", "rank_lanes"]
 
 DATA_AXIS = "data"
 SAMPLE_AXIS = "sample"
+WARP = 32  # the lane map's chunk: one warp of render()'s lanes
 
 
 class Mesh:
@@ -137,6 +152,20 @@ def check_replicated(tensors, what: str, group=None) -> None:
         raise RuntimeError(f"the ranks hold different {what}")
 
 
+def rank_lanes(n_lanes: int, n_data: int, d: int, n_pixels: int, device) -> torch.Tensor:
+    """Rank ``d``'s lanes of ``render()``'s ``n_lanes`` (lane i starting
+    at pixel i): the chunks of ``WARP`` lanes ``d``, ``d + n_data``, ...,
+    padded to ``ceil(chunks / n_data)`` chunks with the id ``n_pixels``
+    (no pixel). Every rank gets as many, so chunk ``c`` of rank ``d`` is
+    chunk ``c * n_data + d`` of the buffer of all lanes."""
+    chunks = -(-n_lanes // WARP)
+    ids = ((torch.arange(-(-chunks // n_data), dtype=torch.int32, device=device) * n_data
+            + d)[:, None] * WARP
+           + torch.arange(WARP, dtype=torch.int32, device=device)).reshape(-1)
+    ids[ids >= n_lanes] = n_pixels
+    return ids
+
+
 def sharded_sums(scene: Scene, camera: cam.Camera, params: RenderParams, mesh: Mesh,
                  sample_start: int = 0):
     """The collective body of ``render_sharded``: returns ``(pixel sums
@@ -146,9 +175,11 @@ def sharded_sums(scene: Scene, camera: cam.Camera, params: RenderParams, mesh: M
     (the all-reduces, to the counters on the host) and ``fetch``: the
     spans ``mesh.prepare``, ``.trace``, ``.allreduce`` and ``.fetch``.
     Event counters sum over the ranks; ``wavefront_iterations`` is the
-    largest rank's, as in ``render()`` the longest lane's."""
+    largest rank's, as in ``render()`` the longest lane's. The rank's
+    lanes are ``rank_lanes``' over ``min(n_data, spp)`` sample blocks
+    (module docstring)."""
     from zraytrace_tpu_torch.ops.bounce_kernel import library
-    from zraytrace_tpu_torch.render import mesh_routing, trace_route
+    from zraytrace_tpu_torch.render import mesh_routing, sample_blocks, trace_route
 
     n_data, n_sample = mesh.shape[DATA_AXIS], mesh.shape[SAMPLE_AXIS]
     w, h, spp = params.width, params.height, params.samples_per_pixel
@@ -159,7 +190,6 @@ def sharded_sums(scene: Scene, camera: cam.Camera, params: RenderParams, mesh: M
     n_pixels = w * h
     n_lanes = min(n_pixels, params.max_wavefront)
     n_slots = math.ceil(n_pixels / n_lanes)
-    per = -(-n_lanes // n_data)
     d, s = mesh.coords
     with span("mesh.prepare") as prepare:
         if dev.type == "cuda":
@@ -170,18 +200,20 @@ def sharded_sums(scene: Scene, camera: cam.Camera, params: RenderParams, mesh: M
         if route.tri_flash is not None:
             check_replicated([x for x in route.tri_flash if isinstance(x, torch.Tensor)],
                              "flash planes")
-        base = torch.arange(d * per, (d + 1) * per, dtype=torch.int32, device=dev)
-        base[base >= n_lanes] = n_pixels  # padding lanes: no pixel, idle from the start
+        base = rank_lanes(n_lanes, n_data, d, n_pixels, dev)
+        per = base.shape[0]
 
     with span("mesh.trace") as trace:
         sums, counters = trace_route(
             route, scene, camera, base, params.seed, w, h, spp_local, params.max_depth,
-            sample_start + s * spp_local, n_lanes, n_pixels, n_slots)
+            sample_start + s * spp_local, n_lanes, n_pixels, n_slots, blocks=n_data)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+        count("mesh.lanes", len(sample_blocks(spp_local, n_data)) * per)
     with span("mesh.allreduce") as collective:
         full = torch.zeros((n_slots, per * n_data, 3), dtype=torch.float32, device=dev)
-        full[:, d * per:(d + 1) * per] = sums
+        full.view(n_slots, per // WARP, n_data, WARP, 3)[:, :, d] = sums.view(
+            n_slots, per // WARP, WARP, 3)
         own_rays = counters[:1].clone()
         events, iters = counters[:C_ITERS].clone(), counters[C_ITERS:].clone()
         dist.all_reduce(full, group=mesh.group())

@@ -182,9 +182,36 @@ def camera_rays(camera: cam.Camera, seed, pixel_ids, sample_idx, width, height):
     return cam.get_rays(camera, u, v)
 
 
+def sample_blocks(spp: int, blocks: int) -> list[tuple[int, int]]:
+    """``spp`` samples cut into at most ``blocks`` contiguous blocks, as
+    ``(offset, count)``: each ``q = ceil(spp / min(blocks, spp))`` long
+    but the last, which holds the rest; no block is empty."""
+    if spp < 1 or blocks < 1:
+        raise ValueError(f"need spp >= 1 and blocks >= 1, got {spp} and {blocks}")
+    q = -(-spp // min(blocks, spp))
+    return [(off, min(q, spp - off)) for off in range(0, spp, q)]
+
+
+def add_blocks(parts):
+    """Traces of the same lanes over consecutive sample blocks,
+    ``[(slot_sums, counters)]``, as one: each pixel's block sums added in
+    block order (``((s0 + s1) + s2) + ...``), the events summed, the
+    iterations the longest block's. A part whose counters are None (a
+    block of a launch that counted all its blocks at once) adds only its
+    sums."""
+    sums, counters = parts[0]
+    for s, c in parts[1:]:
+        sums = sums + s
+        if c is not None:
+            counters = torch.cat([counters[:C_ITERS] + c[:C_ITERS],
+                                  torch.maximum(counters[C_ITERS:], c[C_ITERS:])])
+    return sums, counters
+
+
 def wavefront_trace(scene: Scene, camera: cam.Camera, pixel_base: torch.Tensor,
                     seed, width, height, spp, max_depth, sample_start=0,
-                    pixel_stride=None, n_pixels=None, n_slots: int = 1, tri_flash=None):
+                    pixel_stride=None, n_pixels=None, n_slots: int = 1, tri_flash=None,
+                    blocks: int = 1):
     """Trace samples ``[sample_start, sample_start + spp)`` of the pixels
     of each lane, the plain PyTorch way. ``tri_flash`` (packed planes)
     routes triangles through the flash winner, else the brute force
@@ -195,8 +222,17 @@ def wavefront_trace(scene: Scene, camera: cam.Camera, pixel_base: torch.Tensor,
     ``k in [0, n_slots)`` (stopping at the first id >= ``n_pixels``), one
     sample after another. Runs on the device of ``pixel_base``.
 
+    ``blocks`` > 1: the samples cut by ``sample_blocks``, one trace of the
+    lanes a block, joined by ``add_blocks`` (the bounce kernel's sample
+    blocks, which run every block's lanes in one launch).
+
     Returns ``(slot_sums (n_slots, N, 3) f32, counters (6,) int64)``.
     """
+    if blocks > 1:
+        return add_blocks([
+            wavefront_trace(scene, camera, pixel_base, seed, width, height, count, max_depth,
+                            sample_start + off, pixel_stride, n_pixels, n_slots, tri_flash)
+            for off, count in sample_blocks(spp, blocks)])
     dev = pixel_base.device
     n = pixel_base.shape[0]
     base = pixel_base.to(torch.int32)
@@ -349,16 +385,18 @@ def mesh_routing(scene: Scene, device) -> MeshRoute:
 
 def trace_route(route: MeshRoute, scene: Scene, camera: cam.Camera, pixel_base, seed, width,
                 height, spp, max_depth, sample_start=0, pixel_stride=None, n_pixels=None,
-                n_slots: int = 1):
+                n_slots: int = 1, blocks: int = 1):
     """Trace lanes as ``wavefront_trace`` does, through ``route``'s
-    engine: ``(slot_sums (n_slots, N, 3) f32, counters (6,) int64)``."""
+    engine: ``(slot_sums (n_slots, N, 3) f32, counters (6,) int64)``.
+    ``blocks`` > 1: the samples in blocks, as ``wavefront_trace`` cuts and
+    joins them (on the card the bounce kernel runs them in one launch)."""
     args = (scene, camera, pixel_base, seed, width, height, spp, max_depth, sample_start,
             pixel_stride, n_pixels, n_slots)
     if route.kernel:
         from zraytrace_tpu_torch.ops.bounce_kernel import bounce_trace
 
-        return bounce_trace(*args, tri_flash=route.tri_flash)
-    return wavefront_trace(*args, tri_flash=route.tri_flash)
+        return bounce_trace(*args, tri_flash=route.tri_flash, blocks=blocks)
+    return wavefront_trace(*args, tri_flash=route.tri_flash, blocks=blocks)
 
 
 class Lanes(NamedTuple):
