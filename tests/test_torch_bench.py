@@ -51,6 +51,8 @@ from zraytrace_tpu_torch.kernel_inputs import POSE_EPS, POSE_START, pose_adam_st
 from zraytrace_tpu_torch.scenes import teapot_on_ground
 from zraytrace_tpu_torch.tools import diff_bench
 
+from torch_jax_native import jax_native  # noqa: F401  (an autouse fixture)
+
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]

@@ -47,6 +47,7 @@ from zraytrace_tpu_torch.render import wavefront_trace
 from zraytrace_tpu_torch.scenes import build_scene
 
 import test_torch_winner_ties as ties
+from torch_jax_native import jax_native  # noqa: F401  (an autouse fixture)
 
 torch.set_num_threads(1)
 

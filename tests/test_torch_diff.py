@@ -47,6 +47,8 @@ from zraytrace_tpu_torch.inverse import DIFF_FIELDS, make_loss_fn, merge_scene, 
 from zraytrace_tpu_torch.render import camera_rays, wavefront_trace
 from zraytrace_tpu_torch.render_diff import render_diff, trace_paths
 
+from torch_jax_native import jax_native  # noqa: F401  (an autouse fixture)
+
 torch.set_num_threads(1)
 
 W = H = 12

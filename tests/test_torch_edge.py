@@ -41,6 +41,8 @@ from zraytrace_tpu_torch.diff_trace import trace_closest_diff
 from zraytrace_tpu_torch.ops import flash_intersect as fi
 from zraytrace_tpu_torch.render import trace_closest
 
+from torch_jax_native import jax_native  # noqa: F401  (an autouse fixture)
+
 torch.set_num_threads(1)
 
 T_MIN = 1e-3

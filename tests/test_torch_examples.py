@@ -17,6 +17,8 @@ from zraytrace_tpu.render_diff import render_diff as jax_render_diff
 from zraytrace_tpu.scenes import build_scene as jax_build_scene
 from zraytrace_tpu_torch.examples import camera_calibration, inverse_rendering, mesh_fit
 
+from torch_jax_native import jax_native  # noqa: F401  (an autouse fixture)
+
 torch.set_num_threads(1)
 
 IMAGE_ATOL = 2e-5  # tests/test_torch_diff.py, render_diff's forward against JAX

@@ -34,6 +34,7 @@ from zraytrace_tpu_torch.ops import flash_intersect as fi
 from zraytrace_tpu_torch.profiling import counter
 
 import test_torch_winner_ties as ties
+from torch_jax_native import jax_native  # noqa: F401  (an autouse fixture)
 
 torch.set_num_threads(1)
 

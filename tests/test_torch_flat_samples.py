@@ -2,14 +2,16 @@
 
 The reference is the per-sample loop written out here: one
 ``trace_paths`` call per sample, with the sample's REINFORCE baseline (the
-detached running mean of the pixel's earlier samples) passed in as
-``score_baseline`` and applied inside the trace. ``render_diff`` traces
-the samples as lanes of one call and applies the baseline after the
-trace. The image must be equal bit for bit, and each leaf's gradient
-within 1e-5 of that leaf's largest, since only the order of the sums over
-lanes differs. Scene 1 has glass, so ``mat_ior``'s REINFORCE gradient is
-live; the teapot pose fit runs the winner pass and the margin selection
-on planes.
+detached running mean of the pixel's earlier samples) applied to the
+paths' scores that the call returns. ``render_diff`` traces the samples
+as lanes of one call (``trace_samples``). The image must be equal bit for
+bit, and each leaf's gradient within 1e-5 of that leaf's largest, since
+only the order of the sums over lanes differs. Scene 1 has glass, so
+``mat_ior``'s REINFORCE gradient is live; the teapot pose fit runs the
+winner pass and the margin selection on planes. ``trace_samples`` over
+two consecutive sample ranges, the running sum handed from one call to
+the next as the sharded train step hands it across sample ranks, is held
+to the same bars.
 """
 
 import pytest
@@ -34,8 +36,8 @@ POSE = dict(width=16, height=16, spp=2, max_depth=3, edge_eps=(ki.POSE_EPS, 2 * 
 
 
 def per_sample(scene, camera, width, height, spp, max_depth, **kw):
-    """``render_diff`` as one ``trace_paths`` call per sample, each with
-    its baseline passed in."""
+    """``render_diff`` as one ``trace_paths`` call per sample, each
+    sample's baseline applied to the scores the call returns."""
     n = width * height
     pixel_ids = torch.arange(n, dtype=torch.int32)
     total = torch.zeros((n, 3))
@@ -43,11 +45,25 @@ def per_sample(scene, camera, width, height, spp, max_depth, **kw):
     for k in range(spp):
         b = vm.div(stop_total, max(float(k), 1.0))
         sample_ids = torch.full((n,), k, dtype=torch.int32)
-        r = rd.trace_paths(scene, camera, pixel_ids, sample_ids, SEED, width, height, max_depth,
-                           branch_grad=True, score_baseline=b, **kw)
-        total = total + r
+        r, score = rd.trace_paths(scene, camera, pixel_ids, sample_ids, SEED, width, height,
+                                  max_depth, branch_grad=True, return_score=True, **kw)
         stop_total = stop_total + r.detach()
+        total = total + (r - b * (score - score.detach())[:, None])
     return vm.div(total, float(spp)).reshape(height, width, 3)
+
+
+def two_ranges(scene, camera, width, height, spp, max_depth, **kw):
+    """``trace_samples`` over samples ``[0, spp - 1)`` and then the last
+    one, the running sum and the count handed from the first call to the
+    second; the totals add in ``render_diff``'s order."""
+    n = width * height
+    pixel_ids = torch.arange(n, dtype=torch.int32)
+    args = (scene, camera, pixel_ids)
+    first, stop_total = rd.trace_samples(*args, range(spp - 1), SEED, width, height, max_depth,
+                                         torch.zeros((n, 3)), 0, **kw)
+    last, _ = rd.trace_samples(*args, range(spp - 1, spp), SEED, width, height, max_depth,
+                               stop_total, spp - 1, **kw)
+    return vm.div(first + last, float(spp)).reshape(height, width, 3)
 
 
 def flat(scene, camera, width, height, spp, max_depth, **kw):
@@ -128,6 +144,21 @@ def test_pose_flat_equals_per_sample(teapot):
     assert counter("diff.sample_groups") == 1
     want = pose_run(teapot, per_sample)
     assert float(want[1]["offset"].abs().max()) > 0
+    assert_same(got, want)
+
+
+@pytest.mark.parametrize("setting", ["balls", "pose"])
+def test_two_ranges_carry_the_baseline(balls, balls_one_group, teapot, setting):
+    """``trace_samples`` over two consecutive sample ranges gives one
+    call's image and gradients. Scene 1's last sample takes its baseline
+    from the first call's running sum and count alone, and through the
+    glass it reaches ``mat_ior``; the teapot pose runs the planes through
+    both calls."""
+    if setting == "balls":
+        got, want = balls_run(balls, two_ranges), balls_one_group[0]
+    else:
+        got, want = pose_run(teapot, two_ranges), pose_run(teapot, flat)
+        assert float(want[1]["offset"].abs().max()) > 0
     assert_same(got, want)
 
 

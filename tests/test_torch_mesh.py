@@ -10,6 +10,8 @@ formulas into fused multiply-adds, the port rounds each one
 (tests/test_torch_flash.py).
 """
 
+import hashlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -45,6 +47,8 @@ from zraytrace_tpu_torch.render import (
 from zraytrace_tpu_torch.camera import make_camera
 from zraytrace_tpu_torch.scene import SceneBuilder, mesh_materials_const
 from zraytrace_tpu_torch.scenes import assets_dir, build_scene
+
+from torch_jax_native import ensure_jax_native, jax_native  # noqa: F401  (an autouse fixture)
 
 torch.set_num_threads(1)
 
@@ -142,6 +146,30 @@ def test_bvh_matches_jax(index):
     got = build_tri_bvh(*(torch.from_numpy(np.array(x)) for x in (s.tri_a, s.tri_b, s.tri_c)))
     np.testing.assert_array_equal(got.prim_order.numpy(), np.asarray(want.prim_order))
     assert got.n_nodes == want.n_nodes
+
+
+def test_jax_native_replaces_a_failed_load(monkeypatch, tmp_path):
+    """A process whose first load of the JAX package's library failed (the
+    cached file still being written by another process's g++) builds its
+    BVHs with the numpy fallback, whose scene 3 ``prim_order`` is not the
+    port's; ``ensure_jax_native`` installs a private build in its place,
+    and the orders agree again."""
+    from zraytrace_tpu.native import api as jax_native_api
+    from zraytrace_tpu.native import build as jax_native_build
+
+    s = jax_build_scene(3).scene
+    monkeypatch.setenv("ZRAYTRACE_NATIVE_CACHE", str(tmp_path))
+    monkeypatch.setattr(jax_native_build, "_LIB", None)
+    monkeypatch.setattr(jax_native_build, "_TRIED", False)
+    monkeypatch.setattr(jax_native_api, "_sig_done", False)
+    srcs = [jax_native_build._src_dir() / name for name in jax_native_build._SOURCES]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in srcs)).hexdigest()[:16]
+    (tmp_path / f"libzrt_{digest}.so").write_bytes(b"\x7fELF")  # a half-written library
+    assert jax_native_build.load_library() is None
+    ensure_jax_native()
+    want = jax_build_tri_bvh(s.tri_a, s.tri_b, s.tri_c)
+    got = build_tri_bvh(*(torch.from_numpy(np.array(x)) for x in (s.tri_a, s.tri_b, s.tri_c)))
+    np.testing.assert_array_equal(got.prim_order.numpy(), np.asarray(want.prim_order))
 
 
 @pytest.mark.parametrize("index", [0, 2, 3, 4])

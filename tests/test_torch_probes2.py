@@ -42,6 +42,8 @@ from jax.experimental.pallas import tpu as pltpu
 from zraytrace_tpu import rng as jrng
 from zraytrace_tpu_torch.probes import flash2_probe, gather_probe3, overlap_probe, pallas_probe
 
+from torch_jax_native import jax_native  # noqa: F401  (an autouse fixture)
+
 torch.set_num_threads(1)
 
 CPU = torch.device("cpu")

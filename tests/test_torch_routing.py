@@ -26,6 +26,8 @@ from zraytrace_tpu_torch.convert import camera_from_numpy, scene_from_numpy
 from zraytrace_tpu_torch.profiling import counter
 from zraytrace_tpu_torch.render import MeshRoute, mesh_routing, render, trace_route
 
+from torch_jax_native import jax_native  # noqa: F401  (an autouse fixture)
+
 torch.set_num_threads(1)
 
 W, H, SPP, DEPTH = 16, 12, 2, 4

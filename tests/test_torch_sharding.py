@@ -31,8 +31,9 @@ MESHES = [(4, 1), (2, 2), (1, 4), (1, 1)]
 W = H = 8
 SPP, DEPTH = 4, 4
 # tests/test_sharding.py's training-step setting (its mesh is 4x2 over 8
-# devices; here 2x2 over 4 ranks)
-STEP_MESH, STEP_SPP, STEP_DEPTH = (2, 2), 4, 3
+# devices; here 2x2 and 1x4 over 4 ranks: 1x4 sums three earlier sample
+# ranks in the no-grad pass)
+STEP_MESHES, STEP_SPP, STEP_DEPTH = [(2, 2), (1, 4)], 4, 3
 TRI_MESHES = [(4, 1), (2, 2)]
 # the three-balls scene (scenes.build_scene(1)) at a cut size of its
 # benchmark configuration, on the meshes of four ranks
@@ -62,7 +63,8 @@ def _cases_rank(rank, world, fields, cam, tris):
     """Every case on one rank: ``render_sharded`` at 8x8 on each mesh of
     MESHES with ``world`` ranks; with 4 ranks also on 4x1 at 9x7 (which
     does not divide), the sharded intersector on TRI_MESHES and one
-    training step on STEP_MESH. Returns what each produced on this rank."""
+    training step on each of STEP_MESHES. Returns what each produced on
+    this rank."""
     from zraytrace_tpu_torch.inverse import make_sharded_train_step, split_scene
     from zraytrace_tpu_torch.parallel.mesh import make_mesh, render_sharded
     from zraytrace_tpu_torch.parallel.primshard import make_sharded_intersector
@@ -92,15 +94,16 @@ def _cases_rank(rank, world, fields, cam, tris):
         fn = make_sharded_intersector(make_mesh(*shape, device="cpu"), a.shape[0])
         out[("tri", shape)] = tuple(x.numpy() for x in fn(a, b, c, o, d))
 
-    mesh = make_mesh(*STEP_MESH, device="cpu")
-    params, static = split_scene(scene)
-    params = {f: v.clone().requires_grad_(True) for f, v in params.items()}
-    step_fn, _ = make_sharded_train_step(mesh, params, static, camera, W, H, STEP_SPP,
-                                         STEP_DEPTH, seed=42)
-    loss = step_fn(torch.zeros((W * H, 3)))
-    out["step"] = (float(loss), {f: np.zeros(p.shape, np.float32) if p.grad is None
-                                 else p.grad.numpy() for f, p in params.items()},
-                   {f: p.detach().numpy() for f, p in params.items()})
+    for shape in STEP_MESHES:
+        params, static = split_scene(scene)
+        params = {f: v.clone().requires_grad_(True) for f, v in params.items()}
+        step_fn, _ = make_sharded_train_step(make_mesh(*shape, device="cpu"), params, static,
+                                             camera, W, H, STEP_SPP, STEP_DEPTH, seed=42)
+        loss = step_fn(torch.zeros((W * H, 3)))
+        out[("step", shape)] = (
+            float(loss), {f: np.zeros(p.shape, np.float32) if p.grad is None
+                          else p.grad.numpy() for f, p in params.items()},
+            {f: p.detach().numpy() for f, p in params.items()})
     return out
 
 
@@ -456,14 +459,11 @@ def test_sharded_intersector(ranks, shape):
     np.testing.assert_allclose(uv, np.asarray(juv), atol=1e-6, rtol=0)
 
 
-def test_sharded_train_step(ranks, mini):
-    """tests/test_sharding.py's setting: the loss within 1e-5 of JAX's
-    ``make_loss_fn``, each field's all-reduced gradient within the JAX
-    gradient bar of ``jax.grad`` (the glass ball's ``mat_ior`` through
-    the REINFORCE baseline, which a no-grad pass carries across the
-    sample ranks), and of the port's single-process ``make_loss_fn``
-    within a thousandth of its largest entry; after the step every rank
-    holds the same finite parameters, and they moved."""
+@pytest.fixture(scope="module")
+def step_reference(mini):
+    """The training step's loss and gradients in one process: JAX's
+    ``make_loss_fn`` under ``jax.value_and_grad``, and the port's
+    ``make_loss_fn``, its loss and each field's gradient."""
     import jax
     import jax.numpy as jnp
 
@@ -472,27 +472,42 @@ def test_sharded_train_step(ranks, mini):
     from zraytrace_tpu_torch.inverse import make_loss_fn, split_scene
 
     (jscene, jcam), fields, cam = mini
-    loss, grads, new = ranks[0]["step"]
-    for r in ranks[1:]:
-        assert r["step"][0] == loss
-        for f in new:
-            np.testing.assert_array_equal(r["step"][2][f], new[f], err_msg=f)
     jparams, jstatic = jax_split(jscene)
     jloss, jgrads = jax.value_and_grad(jax_make_loss_fn(
         jstatic, jcam, jnp.zeros((H, W, 3)), W, H, STEP_SPP, STEP_DEPTH, seed=42))(jparams)
-    np.testing.assert_allclose(loss, float(jloss), rtol=1e-5)
-
     scene, camera = _cross(fields, cam)
     params, static = split_scene(scene)
     params = {f: v.clone().requires_grad_(True) for f, v in params.items()}
     single = make_loss_fn(static, camera, torch.zeros((H, W, 3)), W, H, STEP_SPP, STEP_DEPTH,
                           seed=42)(params)
     single.backward()
-    np.testing.assert_allclose(loss, float(single.detach()), rtol=1e-5)
+    return ((float(jloss), {f: np.asarray(g) for f, g in jgrads.items()}),
+            (float(single.detach()), {f: None if p.grad is None else p.grad.numpy()
+                                      for f, p in params.items()}))
+
+
+@pytest.mark.parametrize("shape", STEP_MESHES, ids=str)
+def test_sharded_train_step(ranks, mini, step_reference, shape):
+    """tests/test_sharding.py's setting: the loss within 1e-5 of JAX's
+    ``make_loss_fn``, each field's all-reduced gradient within the JAX
+    gradient bar of ``jax.grad`` (the glass ball's ``mat_ior`` through
+    the REINFORCE baseline, which a no-grad pass carries across the
+    sample ranks), and of the port's single-process ``make_loss_fn``
+    within a thousandth of its largest entry; after the step every rank
+    holds the same finite parameters, and they moved."""
+    _, fields, _ = mini
+    (jloss, jgrads), (sloss, sgrads) = step_reference
+    loss, grads, new = ranks[0][("step", shape)]
+    for r in ranks[1:]:
+        assert r[("step", shape)][0] == loss
+        for f in new:
+            np.testing.assert_array_equal(r[("step", shape)][2][f], new[f], err_msg=f)
+    np.testing.assert_allclose(loss, jloss, rtol=1e-5)
+    np.testing.assert_allclose(loss, sloss, rtol=1e-5)
     moved = False
     for f, g in grads.items():
-        gj = np.asarray(jgrads[f])
-        gs = np.zeros_like(g) if params[f].grad is None else params[f].grad.numpy()
+        gj = jgrads[f]
+        gs = np.zeros_like(g) if sgrads[f] is None else sgrads[f]
         if g.size:
             np.testing.assert_allclose(g, gj, atol=GRAD_ATOL * np.abs(gj).max(), rtol=GRAD_RTOL,
                                        err_msg=f)

@@ -18,7 +18,7 @@ import torch
 
 from zraytrace_tpu_torch import camera as cam
 from zraytrace_tpu_torch.profiling import span
-from zraytrace_tpu_torch.render_diff import MESH_FAST_MIN_TRIANGLES, render_diff
+from zraytrace_tpu_torch.render_diff import MESH_FAST_MIN_TRIANGLES, render_diff, trace_samples
 from zraytrace_tpu_torch.scene import Scene
 
 # Differentiable leaves of Scene (the rest is integer structure).
@@ -44,6 +44,28 @@ def image_loss(img, target):
     return ((img - target) ** 2).mean()
 
 
+def _bvh_order(scene: Scene, device: torch.device):
+    """A host BVH-leaf triangle order of a mesh of at least 64 triangles
+    on a CUDA device; None otherwise."""
+    if scene.n_triangles < MESH_FAST_MIN_TRIANGLES or device.type != "cuda":
+        return None
+    from zraytrace_tpu_torch.geometry.bvh import build_tri_bvh
+
+    return build_tri_bvh(scene.tri_a, scene.tri_b, scene.tri_c).prim_order
+
+
+def _repack(scene: Scene, tri_order):
+    """Original-id planes in ``tri_order`` from the current vertices, with
+    no gradient (a ``diff.pack`` span); None without an order."""
+    if tri_order is None:
+        return None
+    from zraytrace_tpu_torch.ops.flash_intersect import pack_tri_planes
+
+    with torch.no_grad(), span("diff.pack"):
+        return pack_tri_planes(scene.tri_a.detach(), scene.tri_b.detach(), scene.tri_c.detach(),
+                               order=tri_order)
+
+
 def make_loss_fn(static, camera, target, width, height, spp, max_depth, seed=42,
                  edge_eps=None, tri_order=None, edge_screen: bool = False):
     """The loss over the full image, ``loss_fn(params, eps_scale=None)``.
@@ -62,13 +84,7 @@ def make_loss_fn(static, camera, target, width, height, spp, max_depth, seed=42,
     @span("fit.loss")
     def loss_fn(params, eps_scale=None):
         scene = merge_scene(params, static)
-        tf = None
-        if tri_order is not None:
-            from zraytrace_tpu_torch.ops.flash_intersect import pack_tri_planes
-
-            with torch.no_grad(), span("diff.pack"):
-                tf = pack_tri_planes(scene.tri_a.detach(), scene.tri_b.detach(),
-                                     scene.tri_c.detach(), order=tri_order)
+        tf = _repack(scene, tri_order)
         eps = edge_eps
         if eps is not None and eps_scale is not None:
             eps = (tuple(e * eps_scale for e in eps) if isinstance(eps, (tuple, list))
@@ -151,14 +167,9 @@ def fit(scene_init: Scene, camera: cam.Camera, target, width: int, height: int, 
     opt = torch.optim.Adam([params[f] for f in DIFF_FIELDS if f in optimize_fields],
                            lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
 
-    tri_order = None
-    if scene_init.n_triangles >= MESH_FAST_MIN_TRIANGLES and device.type == "cuda":
-        from zraytrace_tpu_torch.geometry.bvh import build_tri_bvh
-
-        tri_order = build_tri_bvh(scene_init.tri_a, scene_init.tri_b,
-                                  scene_init.tri_c).prim_order
     loss_fn = make_loss_fn(static, camera, target, width, height, spp, max_depth, seed,
-                           edge_eps=edge_eps, tri_order=tri_order, edge_screen=edge_screen)
+                           edge_eps=edge_eps, tri_order=_bvh_order(scene_init, device),
+                           edge_screen=edge_screen)
 
     def eps_scale_at(i):
         if coarse_to_fine == 1.0 or edge_eps is None:
@@ -218,27 +229,27 @@ def make_sharded_train_step(mesh, params: dict, static: dict, camera: cam.Camera
     the mesh calls it, with the same parameters.
 
     Rank ``(i, j)`` traces pixels ``[i, i + 1) * H*W / n_data`` (which must
-    divide) for samples ``[j, j + 1) * spp / n_sample``, one sample after
-    another as ``render_diff`` does (``trace_paths``, with its REINFORCE
-    baseline: the running mean of the pixel's earlier samples; where
-    ``mat_ior`` is trained through a dielectric on several sample ranks,
-    a no-grad pass first sums the earlier ranks' samples). The partial
-    image is summed over ``sample`` by the differentiable all-reduce
-    (``torch.distributed.nn.functional.all_reduce``, whose backward sums
-    the sample ranks' gradients of the image), the squared error over
-    ``data``. Each rank's loss is its share divided by the sample count,
-    so that the parameter gradients, all-reduced over every rank, are
-    the gradient of the whole loss and not ``n_sample`` times it; Adam
-    then steps identically everywhere. On the card a mesh of at least 64
-    triangles repacks planes in a BVH order each step, so the winner pass
-    and, with ``edge_eps``, the margin selection launch their kernels.
+    divide) for samples ``[j, j + 1) * spp / n_sample`` through
+    ``render_diff``'s sample loop (``trace_samples``: grouped lanes, with
+    the REINFORCE baseline of the running mean of the pixel's earlier
+    samples; where ``mat_ior`` is trained through a dielectric on several
+    sample ranks, a no-grad pass of the same loop first sums the earlier
+    ranks' samples). The partial image is summed over ``sample`` by the
+    differentiable all-reduce (``torch.distributed.nn.functional.
+    all_reduce``, whose backward sums the sample ranks' gradients of the
+    image), the squared error over ``data``. Each rank's loss is its share
+    divided by the sample count, so that the parameter gradients,
+    all-reduced over every rank, are the gradient of the whole loss and
+    not ``n_sample`` times it; Adam then steps identically everywhere. On
+    the card a mesh of at least 64 triangles repacks planes in a BVH order
+    each step, so the winner pass and, with ``edge_eps``, the margin
+    selection launch their kernels.
     """
     import torch.distributed as dist
     from torch.distributed.nn.functional import all_reduce as all_reduce_diff
 
     from zraytrace_tpu_torch import vecmath as vm
     from zraytrace_tpu_torch.parallel.mesh import DATA_AXIS, SAMPLE_AXIS, check_replicated
-    from zraytrace_tpu_torch.render_diff import trace_paths
     from zraytrace_tpu_torch.scene import DIELECTRIC
 
     n_pixels = width * height
@@ -256,35 +267,27 @@ def make_sharded_train_step(mesh, params: dict, static: dict, camera: cam.Camera
                                  betas=(0.9, 0.999), eps=1e-8)
 
     first = merge_scene({f: v.detach() for f, v in params.items()}, static)
-    tri_order = None
-    if first.n_triangles >= MESH_FAST_MIN_TRIANGLES and dev.type == "cuda":
-        from zraytrace_tpu_torch.geometry.bvh import build_tri_bvh
-
-        tri_order = build_tri_bvh(first.tri_a, first.tri_b, first.tri_c).prim_order.to(dev)
-        check_replicated([tri_order], "BVH orders")
+    tri_order = _bvh_order(first, dev)
+    if tri_order is not None:
+        check_replicated([tri_order.to(dev)], "BVH orders")
     ior = params.get("mat_ior")
     prefix_pass = (n_sample > 1 and ior is not None and ior.requires_grad
                    and bool((first.mat_type == DIELECTRIC).any()))
-
-    def radiance(scene, tf, k, baseline):
-        sample_ids = torch.full((p_l,), k, dtype=torch.int32, device=dev)
-        return trace_paths(scene, camera, pixel_ids, sample_ids, seed, width, height, max_depth,
-                           edge_eps=edge_eps, mesh_fast=True if tf is not None else None,
-                           tri_flash=tf, branch_grad=True, score_baseline=baseline,
-                           edge_screen=edge_screen)
 
     def step_fn(target):
         target = torch.as_tensor(target, dtype=torch.float32, device=dev).reshape(n_pixels, 3)
         target_local = target[d_i * p_l:(d_i + 1) * p_l]
         optimizer.zero_grad(set_to_none=True)
         scene = merge_scene(params, static)
-        tf = None
-        if tri_order is not None:
-            from zraytrace_tpu_torch.ops.flash_intersect import pack_tri_planes
+        tf = _repack(scene, tri_order)
 
-            with torch.no_grad():
-                tf = pack_tri_planes(scene.tri_a.detach(), scene.tri_b.detach(),
-                                     scene.tri_c.detach(), order=tri_order)
+        def samples(s, stop_total):
+            """Sample rank ``s``'s samples of this rank's pixels."""
+            return trace_samples(scene, camera, pixel_ids, range(s * s_l, (s + 1) * s_l), seed,
+                                 width, height, max_depth, stop_total, s * s_l,
+                                 edge_eps=edge_eps, mesh_fast=True if tf is not None else None,
+                                 tri_flash=tf, edge_screen=edge_screen)
+
         stop_total = torch.zeros((p_l, 3), dtype=torch.float32, device=dev)
         if prefix_pass:
             # the REINFORCE baseline of sample k is the mean of samples < k:
@@ -292,16 +295,11 @@ def make_sharded_train_step(mesh, params: dict, static: dict, camera: cam.Camera
             mine = torch.zeros((n_sample, p_l, 3), dtype=torch.float32, device=dev)
             if s_i < n_sample - 1:
                 with torch.no_grad():
-                    for k in range(s_i * s_l, (s_i + 1) * s_l):
-                        mine[s_i] += radiance(scene, tf, k, None)
+                    mine[s_i] = samples(s_i, stop_total)[0]
             dist.all_reduce(mine, group=sample_group)
             for j in range(s_i):
                 stop_total = stop_total + mine[j]
-        total = torch.zeros((p_l, 3), dtype=torch.float32, device=dev)
-        for k in range(s_i * s_l, (s_i + 1) * s_l):
-            r = radiance(scene, tf, k, vm.div(stop_total, max(float(k), 1.0)))
-            total = total + r
-            stop_total = stop_total + r.detach()
+        total, _ = samples(s_i, stop_total)
         if n_sample > 1:
             with warnings.catch_warnings():  # deprecated for torch.compile, not for autograd
                 warnings.simplefilter("ignore", FutureWarning)

@@ -24,9 +24,11 @@ recomputes it in the backward pass; the ids are inputs, so the backward
 pass launches no kernel (the JAX package's ``save_only_these_names(
 "edge_sel_idx")``).
 
-``render_diff`` traces its samples as lanes of one ``trace_paths`` call,
-in groups of at most ``MAX_FLAT_LANES`` lanes (``sample_groups``), and
-applies each sample's REINFORCE baseline after the trace.
+``trace_samples`` is the one sample loop of this path: ``render_diff``
+and ``inverse.make_sharded_train_step`` trace their samples through it,
+as lanes of ``trace_paths`` calls in groups of at most ``MAX_FLAT_LANES``
+lanes (``sample_groups``), and it applies each sample's REINFORCE baseline
+after the trace.
 
 Spans (``profiling``): ``diff.pack`` (``render_diff``'s own planes),
 ``diff.sample`` (``trace_paths``), and per bounce ``diff.winner`` and
@@ -34,7 +36,7 @@ Spans (``profiling``): ``diff.pack`` (``render_diff``'s own planes),
 checkpointed part, its self time the shading) with ``diff.intersect``
 and ``diff.edge`` inside; the last three again, as recompute, in the
 backward pass. Counter: ``diff.sample_groups``, the ``trace_paths``
-calls of ``render_diff``.
+calls of ``trace_samples``.
 """
 
 from __future__ import annotations
@@ -61,13 +63,13 @@ from zraytrace_tpu_torch.scene import Scene
 
 # Meshes of at least this many triangles take the winner-recompute split.
 MESH_FAST_MIN_TRIANGLES = 64
-# The most lanes of one trace_paths call in render_diff (pixels x samples):
+# The most lanes of one trace_paths call in trace_samples (pixels x samples):
 # it bounds one bounce's recompute memory in the backward pass.
 MAX_FLAT_LANES = 1 << 18
 
 
 def sample_groups(n_pixels: int, spp: int) -> list[int]:
-    """The samples of each ``trace_paths`` call ``render_diff`` makes for
+    """The samples of each ``trace_paths`` call ``trace_samples`` makes for
     ``n_pixels`` pixels at ``spp``: consecutive groups of as many samples
     as ``MAX_FLAT_LANES`` lanes hold, one at least."""
     g = max(1, MAX_FLAT_LANES // n_pixels)
@@ -78,7 +80,7 @@ def sample_groups(n_pixels: int, spp: int) -> list[int]:
 def trace_paths(scene: Scene, camera: cam.Camera, pixel_ids, sample_ids, seed, width, height,
                 max_depth: int, bilinear_textures: bool = True, remat: bool = True,
                 edge_eps=None, edge_occlusion: bool | str = True, mesh_fast: bool | None = None,
-                tri_flash=None, branch_grad: bool = False, score_baseline=None,
+                tri_flash=None, branch_grad: bool = False,
                 edge_screen: bool = False, edge_kernel: str = "log", return_score: bool = False):
     """Radiance of one path per lane, ``(N, 3)`` (``zraytrace_tpu/
     render_diff.py:39``), for ``(N,)`` pixel and sample ids.
@@ -90,13 +92,12 @@ def trace_paths(scene: Scene, camera: cam.Camera, pixel_ids, sample_ids, seed, w
     least 64 triangles); ``tri_flash``: original-id planes
     (``diff_trace.pack_for_diff``) for its winner pass and for the margin
     selection. ``branch_grad``: the REINFORCE term of the Fresnel branch,
-    ``(R - b) d log P``, added forward-zero at each path's termination;
-    ``score_baseline`` ``(N, 3)`` is ``b`` (detached; None = 0, and no
-    term of it is formed). ``return_score``: return ``(radiance, score)``,
-    ``score`` ``(N,)`` each path's ``log P`` at its end (None without
-    ``branch_grad``); a path's score stops changing when it ends, so a
-    caller can apply a baseline as ``-b (score - score.detach())`` after
-    the trace (``render_diff`` does). ``edge_screen`` and ``edge_kernel``:
+    ``R d log P``, added forward-zero at each path's termination.
+    ``return_score``: return ``(radiance, score)``, ``score`` ``(N,)`` each
+    path's ``log P`` at its end (None without ``branch_grad``); a path's
+    score stops changing when it ends, so a caller applies a baseline
+    ``b`` as ``-b (score - score.detach())`` after the trace
+    (``trace_samples`` does). ``edge_screen`` and ``edge_kernel``:
     ``edge_factor``'s ``screen`` and ``kernel``. ``remat``: checkpoint each
     bounce's differentiable part.
     """
@@ -112,9 +113,6 @@ def trace_paths(scene: Scene, camera: cam.Camera, pixel_ids, sample_ids, seed, w
     want_amp = edge_eps is not None
     amp = torch.ones((n,), **f32) if (branch_grad or want_amp) else None
     score = torch.zeros((n,), **f32) if branch_grad else None
-    baseline = None
-    if branch_grad and score_baseline is not None:
-        baseline = score_baseline.detach()
 
     fast = (mesh_fast if mesh_fast is not None
             else scene.n_triangles >= MESH_FAST_MIN_TRIANGLES) and scene.n_triangles > 0
@@ -157,13 +155,7 @@ def trace_paths(scene: Scene, camera: cam.Camera, pixel_ids, sample_ids, seed, w
             # masking by `scattered` makes the order moot
             score = score + torch.where(scattered, out[3], 0.0)
             score0 = (score - score.detach())[:, None]
-            if baseline is None:
-                reinforce = torch.where(miss[:, None], contrib.detach(), 0.0)
-            else:
-                died = alive & h["hit"] & absorbed
-                reinforce = (torch.where(miss[:, None], contrib.detach() - baseline, 0.0)
-                             - torch.where(died[:, None], baseline, 0.0))
-            radiance = radiance + reinforce * score0
+            radiance = radiance + torch.where(miss[:, None], contrib.detach(), 0.0) * score0
         if amp is not None:
             mul = out[4]  # 0 marks a diffuse bounce: reset
             amp2 = torch.where(mul == 0.0, 1.0, torch.clamp(amp * mul, max=32.0))
@@ -195,11 +187,46 @@ def trace_paths(scene: Scene, camera: cam.Camera, pixel_ids, sample_ids, seed, w
             state = bounce(*args)
         o, d, throughput, radiance, alive, amp, score = state
     # paths alive after max_depth bounces contribute black (raytrace.zig:64-67)
-    if baseline is not None:
-        # depth-exhausted paths end with R = 0; their -b d log P term stays
-        score0 = (score - score.detach())[:, None]
-        radiance = radiance - torch.where(alive[:, None], baseline, 0.0) * score0
     return (radiance, score) if return_score else radiance
+
+
+def trace_samples(scene: Scene, camera: cam.Camera, pixel_ids, samples: range, seed, width,
+                  height, max_depth: int, stop_total, n_before: int, branch_grad: bool = True,
+                  **trace_kw):
+    """The radiance of ``pixel_ids`` ``(N,)`` summed over the sample ids
+    ``samples``, in sample order: ``(total, stop_total)``, both ``(N, 3)``.
+    The samples run as lanes of ``trace_paths`` calls (``trace_kw`` its
+    arguments), pixel-major within a sample, in consecutive groups of at
+    most ``MAX_FLAT_LANES`` lanes (``sample_groups``); each call adds 1 to
+    the counter ``diff.sample_groups``. With ``branch_grad``, a sample's
+    REINFORCE baseline is the detached mean of the samples before it:
+    ``stop_total`` holds the detached sum of the ``n_before`` samples
+    before ``samples`` and comes back with these added. Every path ends
+    once and its score is fixed from then on, so the baseline's whole
+    term is ``-b (score - score.detach())`` of its final score, 0 forward.
+    """
+    n = pixel_ids.shape[0]
+    total = torch.zeros((n, 3), dtype=torch.float32, device=pixel_ids.device)
+    k = 0
+    for g in sample_groups(n, len(samples)):
+        count("diff.sample_groups")
+        sample_ids = torch.arange(samples.start + k, samples.start + k + g, dtype=torch.int32,
+                                  device=pixel_ids.device).repeat_interleave(n)
+        r, score = trace_paths(scene, camera, pixel_ids.repeat(g), sample_ids, seed, width, height,
+                               max_depth, branch_grad=branch_grad, return_score=True, **trace_kw)
+        r = r.reshape(g, n, 3)
+        if branch_grad:
+            # sample k's baseline: the mean of the samples before it
+            stop = r.detach()
+            b = []
+            for j in range(g):
+                b.append(vm.div(stop_total, max(float(n_before + k + j), 1.0)))
+                stop_total = stop_total + stop[j]
+            r = r - torch.stack(b) * (score - score.detach()).reshape(g, n, 1)
+        for j in range(g):  # in sample order, as one call a sample would add them
+            total = total + r[j]
+        k += g
+    return total, stop_total
 
 
 def render_diff(scene: Scene, camera: cam.Camera, width: int, height: int, spp: int,
@@ -211,22 +238,15 @@ def render_diff(scene: Scene, camera: cam.Camera, width: int, height: int, spp: 
     pixel (``zraytrace_tpu/render_diff.py:231``), on the scene's device
     (the card, for a scene built with the default device).
 
-    The samples run as lanes of one ``trace_paths`` call, pixel-major
-    within a sample, in consecutive groups of at most ``MAX_FLAT_LANES``
-    lanes (``sample_groups``; one sample a call past that many pixels);
-    each call adds 1 to the counter ``diff.sample_groups``. The image sums
-    the samples in order, so it does not depend on the grouping. With
-    ``branch_grad`` (default on; it changes only the ``mat_ior``
-    gradient), each sample's REINFORCE baseline is the detached running
-    mean of the pixel's previous samples, carried across groups. It is
-    applied after the trace: every path ends once and its score is fixed
-    from then on, so the baseline's whole term is ``-b (score -
-    score.detach())`` of the path's final score, 0 forward. On a CUDA
-    device a scene of at least 64 triangles whose vertices require no grad
-    packs its own original-id planes (``pack_for_diff``) unless
-    ``tri_flash`` is given, so the winner pass and the margin selection
-    launch their kernels, once per bounce and group; on the CPU nothing is
-    packed unless the caller passes planes.
+    The samples run through one ``trace_samples`` call, which adds them
+    in order, so the image does not depend on the grouping. ``branch_grad``
+    (default on) adds the REINFORCE term, which changes only the
+    ``mat_ior`` gradient. On a CUDA device a scene of at least 64
+    triangles whose vertices require no grad packs its own original-id
+    planes (``pack_for_diff``) unless ``tri_flash`` is given, so the
+    winner pass and the margin selection launch their kernels, once per
+    bounce and group; on the CPU nothing is packed unless the caller
+    passes planes.
     """
     dev = scene.sph_center.device
     n = width * height
@@ -237,30 +257,10 @@ def render_diff(scene: Scene, camera: cam.Camera, width: int, height: int, spp: 
         with span("diff.pack"):
             tri_flash = pack_for_diff(scene)
 
-    total = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    stop_total = torch.zeros_like(total)
-    k = 0
-    for g in sample_groups(n, spp):
-        count("diff.sample_groups")
-        sample_ids = torch.arange(sample_start + k, sample_start + k + g, dtype=torch.int32,
-                                  device=dev).repeat_interleave(n)
-        r, score = trace_paths(scene, camera, pixel_ids.repeat(g), sample_ids, seed, width, height,
-                               max_depth, bilinear_textures, edge_eps=edge_eps,
-                               edge_occlusion=edge_occlusion, mesh_fast=mesh_fast,
-                               tri_flash=tri_flash, branch_grad=branch_grad,
-                               edge_screen=edge_screen, edge_kernel=edge_kernel,
-                               return_score=True)
-        r = r.reshape(g, n, 3)
-        if branch_grad:
-            # sample k's baseline: the mean of samples < k, applied to each
-            # path's final score (0 forward)
-            stop = r.detach()
-            b = []
-            for j in range(g):
-                b.append(vm.div(stop_total, max(float(k + j), 1.0)))
-                stop_total = stop_total + stop[j]
-            r = r - torch.stack(b) * (score - score.detach()).reshape(g, n, 1)
-        for j in range(g):  # in sample order, as one call a sample would add them
-            total = total + r[j]
-        k += g
+    total, _ = trace_samples(scene, camera, pixel_ids, range(sample_start, sample_start + spp),
+                             seed, width, height, max_depth,
+                             torch.zeros((n, 3), dtype=torch.float32, device=dev), 0, branch_grad,
+                             bilinear_textures=bilinear_textures, edge_eps=edge_eps,
+                             edge_occlusion=edge_occlusion, mesh_fast=mesh_fast,
+                             tri_flash=tri_flash, edge_screen=edge_screen, edge_kernel=edge_kernel)
     return vm.div(total, float(spp)).reshape(height, width, 3)
